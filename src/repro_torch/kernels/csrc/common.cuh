@@ -1,0 +1,89 @@
+// Shared pieces of the attention kernels: element conversion, 16-byte tile
+// loads from device memory into f32 shared memory, and the mask constants.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+// Masked scores are this finite value, not -inf: a fully masked row then
+// yields the mean of V, as the reference kernels and oracles do.
+constexpr float kNegInf = -1e30f;
+
+template <typename T> struct Elem;
+
+template <> struct Elem<float> {
+  static constexpr int kPerVec = 4;  // elements in one 16-byte load
+  __device__ static void unpack(const uint4& u, float* dst) {
+    dst[0] = __uint_as_float(u.x);
+    dst[1] = __uint_as_float(u.y);
+    dst[2] = __uint_as_float(u.z);
+    dst[3] = __uint_as_float(u.w);
+  }
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static void store(float* p, float v) { *p = v; }
+};
+
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr int kPerVec = 8;
+  __device__ static void unpack(const uint4& u, float* dst) {
+    // a bf16 is the upper half of an f32
+    dst[0] = __uint_as_float(u.x << 16);
+    dst[1] = __uint_as_float(u.x & 0xffff0000u);
+    dst[2] = __uint_as_float(u.y << 16);
+    dst[3] = __uint_as_float(u.y & 0xffff0000u);
+    dst[4] = __uint_as_float(u.z << 16);
+    dst[5] = __uint_as_float(u.z & 0xffff0000u);
+    dst[6] = __uint_as_float(u.w << 16);
+    dst[7] = __uint_as_float(u.w & 0xffff0000u);
+  }
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+// Copy rows [row0, row0 + ROWS) of a [n_rows, D] slice whose rows lie
+// `row_stride` elements apart into shared memory as f32 with row stride LDS.
+// Rows at or beyond n_rows are filled with zeros (the ragged edge is masked
+// by the caller, never padded in device memory).  Every thread of the block
+// takes part; 16-byte loads, neighbouring threads on neighbouring addresses.
+template <typename T, int D, int ROWS, int LDS, int THREADS>
+__device__ __forceinline__ void load_tile(float* __restrict__ smem,
+                                          const T* __restrict__ gmem,
+                                          int64_t row_stride, int row0,
+                                          int n_rows) {
+  constexpr int PV = Elem<T>::kPerVec;
+  constexpr int VECS_PER_ROW = D / PV;
+  constexpr int TOTAL = ROWS * VECS_PER_ROW;
+  for (int i = threadIdx.x; i < TOTAL; i += THREADS) {
+    const int r = i / VECS_PER_ROW;
+    const int c = (i % VECS_PER_ROW) * PV;
+    float vals[PV];
+    const int row = row0 + r;
+    if (row < n_rows) {
+      const uint4 u = *reinterpret_cast<const uint4*>(
+          gmem + static_cast<int64_t>(row) * row_stride + c);
+      Elem<T>::unpack(u, vals);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PV; ++e) vals[e] = 0.f;
+    }
+    float* dst = smem + r * LDS + c;
+#pragma unroll
+    for (int e = 0; e < PV; e += 4) {
+      *reinterpret_cast<float4*>(dst + e) =
+          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float apply_cap(float s, float cap) {
+  return cap > 0.f ? cap * tanhf(s / cap) : s;
+}
+
+}  // namespace rt

@@ -1,0 +1,245 @@
+# Counterpart of src/repro/models/attention.py.  Not ported yet:
+# `attend_chunked` (pure streaming softmax, used by the training path), the
+# cross-attention inputs of `qkv` (`kv_x`, `kv_positions`, `rope=False`) and
+# `attend_reference`'s `kv_len`, which only the enc-dec family uses.
+"""GQA attention: reference (quadratic) and cuda (the hand-written kernels).
+
+Head padding.  The parameter layout pads q heads up to a multiple of the
+tensor-parallel size and expands kv heads by replication slots; pad heads are
+zero-initialised and **masked out of the output**.  On one device tp = 1, so
+``h_pad = n_heads``, ``kv_pad = n_kv`` and ``repeat = 1``; the general code is
+kept so that the layout stays the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import gqa_out, gqa_scores
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
+
+NEG_INF = -1e30       # masked scores are finite: a fully masked row is mean(V)
+
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadLayout:
+    n_heads: int          # real q heads
+    n_kv: int             # real kv heads
+    h_pad: int            # padded q slots (divisible by tp)
+    kv_pad: int           # padded kv slots (divisible by tp, divides h_pad)
+    repeat: int           # kv replication factor kv_pad / n_kv
+    head_dim: int
+
+    @staticmethod
+    def make(a: AttnConfig, tp: int) -> "HeadLayout":
+        h, kv = a.n_heads, a.n_kv_heads
+        assert h % kv == 0, (h, kv)
+        # smallest integer replication r with tp | kv*r (exact kv copies)
+        r = tp // math.gcd(kv, tp)
+        kv_pad = kv * r
+        lcm = tp * kv_pad // math.gcd(tp, kv_pad)
+        h_pad = lcm * math.ceil(max(h, 1) / lcm)
+        return HeadLayout(h, kv, h_pad, kv_pad, r, a.head_dim)
+
+    @property
+    def group(self) -> int:            # q slots per kv slot
+        return self.h_pad // self.kv_pad
+
+    @property
+    def g_real(self) -> int:           # q slots per REAL kv head
+        return self.h_pad // self.n_kv
+
+    def head_mask(self) -> np.ndarray:
+        """[h_pad] 1.0 for real q heads, 0.0 for structural padding."""
+        real_per_group = self.n_heads // self.n_kv
+        s = np.arange(self.h_pad)
+        return ((s % self.g_real) < real_per_group).astype(np.float32)
+
+    @property
+    def n_pad(self) -> int:
+        return self.h_pad - self.n_heads
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def attention_specs(a: AttnConfig, d: int, layout: HeadLayout) -> Dict[str, Any]:
+    hd = a.head_dim
+    kv_axes = (("embed", "kv_heads", "head_dim") if layout.repeat == 1
+               else ("embed", None, None))
+    mask = layout.head_mask()
+
+    def q_init(gen, shape, device):
+        w = 0.02 * L.normal(gen, shape, device)
+        m = torch.as_tensor(mask, device=device)
+        # zero the pad-head columns; the head axis is third from the end
+        # whether or not a stacked layer axis leads
+        return w * m[:, None]
+
+    specs: Dict[str, Any] = {
+        "wq": {"kernel": ParamSpec((d, layout.h_pad, hd),
+                                   ("embed", "heads", "head_dim"),
+                                   init_fn=q_init)},
+        "wk": {"kernel": ParamSpec((d, layout.n_kv, hd), kv_axes, "scaled")},
+        "wv": {"kernel": ParamSpec((d, layout.n_kv, hd), kv_axes, "scaled")},
+        "wo": {"kernel": ParamSpec((layout.h_pad, hd, d),
+                                   ("heads", "head_dim", "embed"), "scaled")},
+    }
+    if a.qkv_bias:
+        specs["wq"]["bias"] = ParamSpec((layout.h_pad, hd),
+                                        ("heads", "head_dim"), "zeros")
+        specs["wk"]["bias"] = ParamSpec((layout.n_kv, hd),
+                                        (kv_axes[1], kv_axes[2]), "zeros")
+        specs["wv"]["bias"] = ParamSpec((layout.n_kv, hd),
+                                        (kv_axes[1], kv_axes[2]), "zeros")
+    if a.qk_norm:
+        specs["q_norm"] = {"scale": ParamSpec((hd,), (None,), "ones")}
+        specs["k_norm"] = {"scale": ParamSpec((hd,), (None,), "ones")}
+    return specs
+
+
+def _proj(p, x, dtype):
+    y = torch.einsum("bsd,dhk->bshk", x.to(dtype), L.get_kernel(p, dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(dtype)
+    return y
+
+
+def qkv(params, a: AttnConfig, layout: HeadLayout, x: torch.Tensor,
+        positions: torch.Tensor, dtype, *, rope_tables=None):
+    """Project to padded-slot q and kv-slot k/v, applying qk-norm + RoPE.
+    ``rope_tables``: `layers.rope_tables(positions, ...)` made once by a
+    caller that runs many layers at the same positions."""
+    q = _proj(params["wq"], x, dtype)
+    k = _proj(params["wk"], x, dtype)
+    v = _proj(params["wv"], x, dtype)
+    if a.qk_norm:                       # before rope
+        q = L.rmsnorm(params["q_norm"], q)
+        k = L.rmsnorm(params["k_norm"], k)
+    q = L.apply_rope(q, positions, a.rope_theta, rope_tables)
+    k = L.apply_rope(k, positions, a.rope_theta, rope_tables)
+    if layout.repeat > 1:
+        k = torch.repeat_interleave(k, layout.repeat, dim=2)
+        v = torch.repeat_interleave(v, layout.repeat, dim=2)
+    return q, k, v
+
+
+def out_proj(params, layout: HeadLayout, ctx: torch.Tensor,
+             dtype) -> torch.Tensor:
+    if layout.n_pad:                    # kill structural pad heads
+        mask = torch.as_tensor(layout.head_mask(), dtype=dtype,
+                               device=ctx.device)
+        ctx = ctx * mask[None, None, :, None]
+    return torch.einsum("bshk,hkd->bsd", ctx.to(dtype),
+                        L.get_kernel(params["wo"], dtype))
+
+
+# ---------------------------------------------------------------------------
+# Masking
+# ---------------------------------------------------------------------------
+
+
+def _mask_bias(q_pos, k_pos, window, causal: bool):
+    """Additive mask bias [..., Sq, Sk].  window: int or int tensor, <0 =
+    global."""
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        ok = ok & (d >= 0)
+    if isinstance(window, torch.Tensor):
+        ok = ok & ((window < 0) | (d < window))
+    elif window is not None and window >= 0:
+        ok = ok & (d < window)
+    return torch.where(ok, 0.0, NEG_INF)
+
+# ---------------------------------------------------------------------------
+# Core attention impls (q: [B,Sq,Hp,hd], k/v: [B,Sk,KVp,hd])
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q, k, group: int):
+    """-> [B, KVp, G, Sq, Sk] in f32."""
+    return gqa_scores(q, k, group) / math.sqrt(q.shape[-1])
+
+
+def _gqa_out(probs, v, hp: int):
+    return gqa_out(probs, v)
+
+
+def attend_reference(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
+                     causal: bool, window, cap: float = 0.0) -> torch.Tensor:
+    scores = _gqa_scores(q, k, layout.group)
+    scores = L.softcap(scores, cap)
+    bias = _mask_bias(q_pos, k_pos, window, causal)
+    scores = scores + bias[:, None, None] if bias.ndim == 3 else scores + bias
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v, layout.h_pad).to(q.dtype)
+
+
+def attend_decode_plain(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
+                        window, cap: float = 0.0) -> torch.Tensor:
+    """The reference's `attend_decode`: a plain masked softmax over the
+    whole cache.  Kept as the oracle of the decode kernel at this level."""
+    b, s, kvp, hd = k_cache.shape
+    k_pos = torch.arange(s, dtype=torch.int32, device=q.device)[None].expand(b, s)
+    cur = (cache_len[:, None] if cache_len.ndim == 1 else cache_len) - 1
+    scores = _gqa_scores(q, k_cache, layout.group)       # [B,KVp,G,1,S]
+    scores = L.softcap(scores, cap)
+    d = cur[..., :, None] - k_pos[..., None, :]          # [B,1,S]; cur = query pos
+    ok = d >= 0                                          # excludes empty slots
+    if isinstance(window, torch.Tensor):
+        ok = ok & ((window < 0) | (d < window))
+    elif window is not None and window >= 0:
+        ok = ok & (d < window)
+    bias = torch.where(ok, 0.0, NEG_INF)
+    scores = scores + bias[:, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v_cache, layout.h_pad).to(q.dtype)
+
+
+def attend_decode(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
+                  window, cap: float = 0.0,
+                  impl: str = "cuda") -> torch.Tensor:
+    """Single-token decode over a KV cache.  q: [B,1,Hp,hd]; caches:
+    [B,S,KVp,hd]; cache_len: [B] valid entries including the current token.
+
+    In the JAX package this is a plain masked softmax that the SPMD
+    partitioner turns into flash-decode partials over a sharded cache.  On
+    one GPU nothing builds them, so with ``impl="cuda"`` this **is** the
+    flash-decode kernel (its plain version for a CPU tensor).  The two agree
+    for ``cache_len >= 1``, which the decode step guarantees."""
+    if impl == "reference":
+        return attend_decode_plain(q, k_cache, v_cache, cache_len, layout,
+                                   window=window, cap=cap)
+    if impl == "cuda":
+        return kops.flash_decode(q, k_cache, v_cache, cache_len,
+                                 group=layout.group, window=window, cap=cap)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attend(impl: str, q, k, v, q_pos, k_pos, layout, *, causal, window,
+           cap=0.0):
+    if impl == "reference":
+        return attend_reference(q, k, v, q_pos, k_pos, layout,
+                                causal=causal, window=window, cap=cap)
+    if impl == "cuda":
+        return kops.flash_attention(q, k, v, q_pos, k_pos,
+                                    group=layout.group, causal=causal,
+                                    window=window, cap=cap)
+    if impl in ("chunked", "pallas"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} is the JAX package's; the port has "
+            "'cuda' and 'reference' ('chunked' comes with the training "
+            "slice, ROADMAP.md Queue A)")
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,0 +1,91 @@
+# Counterpart of src/repro/models/model_zoo.py.  Not ported yet:
+# `cross_entropy` and `Model.loss` (training), `Model.axes`, the dry-run
+# input specs, and every family but the dense decoder LM.
+"""Unified model facade: build an architecture, expose init / forward /
+prefill / decode plus cache construction.
+
+``Model`` holds no parameters: as in the reference they are a nested dict of
+tensors that the caller owns and passes to every call.  ``device`` is fixed
+when the model is built and is where ``init`` and ``init_cache`` allocate.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import decode as D
+from repro_torch.models import kvcache as KC
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.transformer import ModelDims
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    dims: ModelDims
+    device: torch.device
+
+    # ---- params ----------------------------------------------------------
+    def specs(self):
+        return T.lm_specs(self.cfg, self.dims)
+
+    def init(self, gen: torch.Generator):
+        """Random parameters drawn from ``gen`` (where the JAX package takes
+        a PRNG key), allocated on the model's device."""
+        return L.init_tree(gen, self.specs(), dtype_of(self.cfg.param_dtype),
+                           self.device)
+
+    # ---- forward ---------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, params, batch: Dict[str, torch.Tensor]):
+        return T.lm_forward(self.params_on_device(params), self.cfg,
+                            self.dims, batch["tokens"])
+
+    # ---- serving ---------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int):
+        cfg = self.cfg
+        return KC.init_cache(cfg.n_layers, batch, max_seq,
+                             self.dims.layout.kv_pad, cfg.attn.head_dim,
+                             dtype_of(cfg.compute_dtype), device=self.device,
+                             quant=cfg.cache_quant == "int8")
+
+    @torch.no_grad()
+    def prefill(self, params, batch, cache):
+        return D.lm_prefill(self.params_on_device(params), self.cfg,
+                            self.dims, batch["tokens"], cache)
+
+    @torch.no_grad()
+    def decode_step(self, params, token, cache):
+        return D.lm_decode(self.params_on_device(params), self.cfg, self.dims,
+                           token, cache)
+
+    # ----------------------------------------------------------------------
+    def params_on_device(self, params):
+        """Raise early, by name, if parameters lie on another device than
+        the model's (no silent transfer on the hot path)."""
+        leaf = params["final_norm"]["scale"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"parameters on {leaf.device}, model on "
+                             f"{self.device}")
+        return params
+
+    def param_count(self, params=None) -> int:
+        if params is not None:
+            return L.param_count(params)
+        return self.cfg.param_count()
+
+
+def build_model(cfg: ArchConfig, plan=None, *,
+                device: DeviceLike = None) -> Model:
+    """``device=None`` means the card; ``device="cpu"`` must be asked for."""
+    if plan is not None:
+        raise NotImplementedError(
+            "sharding plans are not ported yet (ROADMAP.md, Queue A: "
+            "distributed)")
+    T.require_ported(cfg)
+    return Model(cfg, ModelDims.make(cfg, 1), resolve_device(device))

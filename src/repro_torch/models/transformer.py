@@ -1,0 +1,219 @@
+# Counterpart of src/repro/models/transformer.py, dense family only.  Not
+# ported yet: the MoE, SSM and hybrid layer bodies and stacks (`ssm_layer`,
+# `_hybrid_stack`, `_shared_attn_block`, `shared_attn_specs`), the VLM patch
+# projection, rematerialisation and grouped layer scans (training), and the
+# `shard(...)` constraints (identities on one device) and the `rng` /
+# `patch_embeds` arguments that only those families use.
+"""Decoder-only LM, dense family.
+
+Parameters keep the reference's layout: the layers' leaves are stacked on a
+leading "layer" axis.  The reference scans over that axis; here it is a Python
+loop that slices layer ``i`` off every leaf (a view, no copy).  Per-layer
+static attention windows (gemma3's 5:1 local:global) ride along as Python
+ints.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.attention import HeadLayout
+from repro_torch.models.layers import ParamSpec
+
+PORTED_FAMILIES = ("dense",)
+_ROADMAP_ITEM = {
+    "moe": "MoE", "ssm": "SSM + hybrid with K3", "hybrid": "SSM + hybrid "
+    "with K3", "encdec": "enc-dec, VLM, int8 weights and cache",
+    "vlm": "enc-dec, VLM, int8 weights and cache",
+}
+
+
+def require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        item = _ROADMAP_ITEM.get(cfg.family, cfg.family)
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+            f"ROADMAP.md, Queue A, item '{item}'")
+    if cfg.weight_quant != "none" or cfg.cache_quant != "none":
+        raise NotImplementedError(
+            "int8 weights and the int8 KV cache are not ported yet: see "
+            "ROADMAP.md, Queue A, item 'enc-dec, VLM, int8 weights and cache'")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDims:
+    """Mesh-dependent derived dimensions (head/vocab padding)."""
+    tp: int
+    layout: Optional[HeadLayout]
+    vocab_pad: int
+
+    @staticmethod
+    def make(cfg: ArchConfig, tp: int) -> "ModelDims":
+        layout = HeadLayout.make(cfg.attn, tp) if cfg.attn else None
+        vpad = tp * math.ceil(cfg.vocab_size / tp)
+        return ModelDims(tp, layout, vpad)
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def layer_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
+    require_ported(cfg)
+    d = cfg.d_model
+    return {
+        "attn_norm": L.rmsnorm_specs(d),
+        "attn": A.attention_specs(cfg.attn, d, dims.layout),
+        "mlp_norm": L.rmsnorm_specs(d),
+        "mlp": L.mlp_specs(d, cfg.d_ff, glu=cfg.glu),
+    }
+
+
+def lm_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
+    specs: Dict[str, Any] = {
+        "embed": {"embedding": ParamSpec((dims.vocab_pad, cfg.d_model),
+                                         ("vocab", "embed"), "normal", 1.0)},
+        "final_norm": L.rmsnorm_specs(cfg.d_model),
+    }
+    per_layer = layer_specs(cfg, dims)
+    if cfg.scan_layers:
+        specs["layers"] = L.stack_specs(per_layer, cfg.n_layers)
+    else:
+        specs["layers"] = {f"layer_{i}": per_layer for i in range(cfg.n_layers)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"kernel": ParamSpec(
+            (cfg.d_model, dims.vocab_pad), ("embed", "vocab"), "scaled")}
+    return specs
+
+
+def layer_params(params, cfg: ArchConfig, i: int):
+    """Parameters of layer ``i``: a slice of the stacked leaves (views)."""
+    if cfg.scan_layers:
+        return L.tree_index(params["layers"], i)
+    return params["layers"][f"layer_{i}"]
+
+
+# ---------------------------------------------------------------------------
+# Layer bodies
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(cfg: ArchConfig, positions):
+    """The rotary tables of a step's positions, shared by all its layers."""
+    return L.rope_tables(positions, cfg.attn.head_dim, cfg.attn.rope_theta)
+
+
+def _attn_out(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
+              *, plus_one: bool, rope=None):
+    """norm -> qkv -> attention -> output projection; returns (y, (k, v))."""
+    h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
+    dt = x.dtype
+    q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
+                    rope_tables=rope)
+    ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
+                   dims.layout, causal=True, window=window,
+                   cap=cfg.attn.softcap)
+    return A.out_proj(p["attn"], dims.layout, ctx, dt), (k, v)
+
+
+def _attn_block(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
+                *, plus_one: bool, aux: Dict, rope=None):
+    y, kv = _attn_out(p, cfg, dims, x, positions, window, plus_one=plus_one,
+                      rope=rope)
+    return x + y, kv
+
+
+def _mlp_block(p, cfg, x, *, plus_one: bool, aux: Dict):
+    h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
+    return x + L.mlp(p["mlp"], h, cfg.act, x.dtype)
+
+
+def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
+                aux=None, rope=None):
+    aux = {} if aux is None else aux
+    if cfg.parallel_block:
+        # PaLM-style parallel residual: y = x + attn(n1(x)) + mlp(n2(x))
+        attn_out, kv = _attn_out(p, cfg, dims, x, positions, window,
+                                 plus_one=plus_one, rope=rope)
+        h2 = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
+        y = L.mlp(p["mlp"], h2, cfg.act, x.dtype)
+        return x + (attn_out + y), kv, aux
+    x, kv = _attn_block(p, cfg, dims, x, positions, window,
+                        plus_one=plus_one, aux=aux, rope=rope)
+    x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)
+    return x, kv, aux
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
+                  *, collect_kv: bool = False, plus_one=False):
+    """Run all layers full-sequence.  Returns (x, aux, kv or None); kv is a
+    pair of per-layer lists of [B,S,KVp,hd] tensors."""
+    require_ported(cfg)
+    windows = cfg.layer_windows()
+    rope = rope_tables(cfg, positions)           # once for all layers
+    aux: Dict = {}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v), aux = dense_layer(layer_params(params, cfg, i), cfg, dims,
+                                     x, positions, windows[i],
+                                     plus_one=plus_one, aux=aux, rope=rope)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, aux, ((ks, vs) if collect_kv else None)
+
+
+# ---------------------------------------------------------------------------
+# Top-level model
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params, cfg: ArchConfig, dims: ModelDims, tokens):
+    dt = dtype_of(cfg.compute_dtype)
+    x = L.embed_lookup(params["embed"], tokens, dt)
+    if cfg.name.startswith("gemma"):
+        # the factor is rounded to the compute dtype first, as the reference
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    return x
+
+
+def unembed(params, cfg: ArchConfig, dims: ModelDims, x):
+    dt = dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        logits = L.unembed(params["embed"], x, dt)
+    else:
+        logits = L.dense(params["lm_head"], x, dt)
+    if dims.vocab_pad > cfg.vocab_size:
+        mask = torch.arange(dims.vocab_pad, device=x.device) < cfg.vocab_size
+        logits = torch.where(mask[None, None], logits, -1e30)
+    return logits
+
+
+def positions_for(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
+
+
+def lm_forward(params, cfg: ArchConfig, dims: ModelDims,
+               tokens) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward -> (logits, aux)."""
+    plus_one = cfg.name.startswith("gemma")
+    positions = positions_for(tokens)
+    x = embed_tokens(params, cfg, dims, tokens)
+    x, aux, _ = decoder_stack(params, cfg, dims, x, positions,
+                              plus_one=plus_one)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
+    return unembed(params, cfg, dims, x), aux

@@ -1,0 +1,58 @@
+"""The CUDA kernels against their plain versions, on the card.  These tests
+need a CUDA device and nvcc; without one they skip (decided inside the
+fixture, never at import).  Run them on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+`chip_smoke.py` runs the same sweeps as part of its `kernels` phase."""
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_sweep(smoke):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = smoke.sweep_flash_attention(gen)
+    assert res["cases"] >= 50
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_sweep(smoke):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = smoke.sweep_flash_decode(gen)
+    assert res["cases"] >= 23
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(smoke):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    q = torch.zeros((1, 8, 2, 16), device="cuda")
+    k = torch.zeros((1, 8, 1, 16), device="cuda")
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), k.half(), group=2)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :8], k[..., :8], k[..., :8], group=2)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k, k, group=2)
+    with pytest.raises(ValueError):
+        flash_decode(q[:, :1], k, k, torch.ones(1, device="cuda"), group=2)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, k, group=2,
+                        window=torch.tensor(4, device="cuda"))

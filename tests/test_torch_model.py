@@ -1,0 +1,143 @@
+"""The port's dense decoder LM against the JAX package's on converted
+parameters (reduced size, f32, CPU): full-sequence logits, prefill logits and
+cache, decode steps with unequal row lengths.  The JAX side runs with
+``attention_impl="pallas"`` (interpret mode), the port with ``"cuda"``, which
+on CPU tensors is the kernels' plain versions.  Tolerance 2e-4, the
+reference's own cross-implementation tolerance (tests/test_models.py)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import model_pair, to_np
+from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.models.model_zoo import build_model
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+ARCHS = ["qwen3-1.7b", "qwen2.5-14b", "gemma3-4b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return model_pair(request.param)
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def test_lm_forward_logits(pair):
+    jcfg, jm, jp, pcfg, pm, pp = pair
+    toks = _tokens(pcfg, 2, 24)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = pm.forward(pp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+
+
+def test_prefill_and_decode_steps(pair):
+    jcfg, jm, jp, pcfg, pm, pp = pair
+    b, s, max_seq = 3, 10, 32
+    toks = _tokens(pcfg, b, s, seed=1)
+    jc = jm.init_cache(b, max_seq)
+    pc = pm.init_cache(b, max_seq)
+    want, jc, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    got, pc2, _ = pm.prefill(pp, {"tokens": torch.from_numpy(toks)}, pc)
+    assert pc2 is pc                              # updated in place
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(to_np(pc[key]), to_np(jc[key]), **TOL)
+    np.testing.assert_array_equal(to_np(pc["length"]), to_np(jc["length"]))
+
+    # unequal row lengths, as continuous batching leaves them: one row far
+    # behind, one beyond the cache (an idle slot: its write is dropped)
+    lens = np.asarray([s, 4, max_seq + 2], np.int32)
+    jc["length"] = jnp.asarray(lens)
+    pc["length"].copy_(torch.from_numpy(lens))
+    rng = np.random.default_rng(2)
+    for step in range(3):
+        tok = rng.integers(0, pcfg.vocab_size, size=(b, 1)).astype(np.int32)
+        want, jc, _ = jm.decode_step(jp, jnp.asarray(tok), jc)
+        got, pc, _ = pm.decode_step(pp, torch.from_numpy(tok), pc)
+        np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+        np.testing.assert_array_equal(to_np(pc["length"]), lens + step + 1)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(to_np(pc[key]), to_np(jc[key]), **TOL)
+
+
+def test_parallel_block_matches():
+    jcfg, jm, jp, pcfg, pm, pp = model_pair("qwen3-1.7b")
+    import dataclasses
+    from repro.models.model_zoo import build_model as jbuild
+    jm = jbuild(dataclasses.replace(jcfg, parallel_block=True))
+    pm = build_model(dataclasses.replace(pcfg, parallel_block=True),
+                     device="cpu")
+    toks = _tokens(pcfg, 2, 12)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = pm.forward(pp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+
+
+def test_params_round_trip_and_unknown_leaf(pair):
+    jcfg, jm, jp, pcfg, pm, pp = pair
+    tree = jax.tree.map(np.asarray, jp)
+    back = params_to_numpy(pp)
+    flat_a = jax.tree.leaves(tree)
+    flat_b = jax.tree.leaves(back)
+    assert jax.tree.structure(tree) == jax.tree.structure(back)
+    for a, b in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+    bad = dict(tree, surprise=np.zeros(3, np.float32))
+    with pytest.raises(KeyError, match="surprise"):
+        params_from_numpy(bad, pcfg, device="cpu")
+    bad = dict(tree)
+    bad["final_norm"] = {"scale": np.zeros(7, np.float32)}
+    with pytest.raises(ValueError, match="final_norm/scale"):
+        params_from_numpy(bad, pcfg, device="cpu")
+    bad = {k: v for k, v in tree.items() if k != "embed"}
+    with pytest.raises(KeyError, match="embed"):
+        params_from_numpy(bad, pcfg, device="cpu")
+
+
+def test_bf16_leaves_convert_exactly():
+    jcfg, jm, jp, pcfg, pm, pp = model_pair("qwen3-1.7b")
+    tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.bfloat16)), jp)
+    got = params_from_numpy(tree, pcfg, device="cpu", dtype=torch.bfloat16)
+    leaf = got["layers"]["attn"]["wq"]["kernel"]
+    assert leaf.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        leaf.float().numpy(),
+        np.asarray(tree["layers"]["attn"]["wq"]["kernel"], np.float32))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_configs_match_the_reference(arch):
+    import dataclasses
+    from repro.configs import get_config as jget, reduced as jreduced
+    for a, b in ((jget(arch), get_config(arch)),
+                 (jreduced(jget(arch)), reduced(get_config(arch)))):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert da.pop("attention_impl") == "chunked"
+        assert db.pop("attention_impl") == "cuda"
+        assert da == db
+        assert a.layer_windows() == b.layer_windows()
+        assert a.param_count() == b.param_count()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "zamba2-1.2b",
+                                  "whisper-tiny", "internvl2-76b"])
+def test_families_outside_the_slice_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(reduced(get_config(arch)), device="cpu")
+
+
+def test_init_shapes_match_the_reference_layout(pair):
+    jcfg, jm, jp, pcfg, pm, pp = pair
+    fresh = pm.init(torch.Generator().manual_seed(0))
+    want = jax.tree.map(lambda a: tuple(a.shape), jp)
+    got = jax.tree.map(lambda a: tuple(a.shape), fresh)
+    assert want == got
+    assert pm.param_count(fresh) == jm.param_count(jp)
