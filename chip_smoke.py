@@ -3,30 +3,36 @@
 
     python3 chip_smoke.py            # every phase; needs one card
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card (a sweep of small shapes and the
-serving path's full-width shapes, timed), serves a handful of requests on
-full-width qwen3-1.7b (bf16, random weights from a seed) through the port's
-``ServeEngine``, checks by the launch counters that prefill went through the
-flash-attention kernel and every decode step through the flash-decode kernel,
-holds the kernel path against the plain path on the card, and builds the
-interval profile of the run.
+Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
+intra-chunk) from the sources in this checkout, holds each kernel against its
+plain PyTorch version on the card (a sweep of small shapes and the serving
+paths' full-width shapes, timed), then serves 16 requests on each of three
+full-width configurations in turn (qwen3-1.7b, mamba2-780m, zamba2-1.2b;
+bf16, random weights from seed 0) through the port's ``ServeEngine``.  For
+each path it checks by the launch counters that every prefill went through
+the kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and
+every decode step through K2 per attention layer, holds the kernel path
+against the plain path on the card (in bf16 and in f32 activations), and
+builds the interval profile of the run.
 
 Every phase prints one JSON object on a line of its own.  The line before the
-last is ``{"kernels": [...]}`` (per kernel: launches on the serving path,
+last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
 error, time, the plain version's time, one library call's time as a yardstick
-that the port itself never calls, and the least time the card could take).
-The last line is ``{"ok": true, "device": {...}}``.  Any failing phase raises
-and the run exits non-zero; with no CUDA device it exits non-zero at once.
+that the port itself never calls, or null where no single call computes the
+function, and the least time the card could take).  The last line is
+``{"ok": true, "device": {...}}``.  Any failing phase raises and the run exits
+non-zero; with no CUDA device it exits non-zero at once.
 
-``--phases device,build,kernels`` runs a subset while developing (the last
-line is then not printed); the extra phase ``trace`` (after ``serve``) breaks
-a decode step and a prefill down by kernel with ``torch.profiler``.
+``--phases device,build,kernels`` and ``--paths mamba2-780m`` run a subset
+while developing (the last two lines are then not printed); the extra phase
+``trace`` (after ``serve``) breaks a decode step and a prefill of each path
+down by kernel with ``torch.profiler``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -46,13 +52,45 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4,    # sums run in another order than the plain version's
        torch.bfloat16: 2e-2}   # one bf16 rounding of an O(1) output
 
+# K3's y and s_chunk are not O(1), so its limit is relative to the largest
+# magnitude of the plain version's output: the reference's own SSD tolerance
+# (2e-4, tests/test_kernels.py), plus what rounding cum = cumsum(dt A) to f32
+# costs (`ssd_limit`).  Both versions upcast the same rounded inputs and sum
+# in f32, so they agree near f32 for bf16 inputs too; what differs is the
+# order of the sums, the cumsum's included, and exp(cum_t - cum_s) moves by
+# the cumsum's rounding, a few ulp of |cum|: eps_f32 * max|cum| relatively.
+SSD_REL_TOL = 2e-4
+
+
+def ssd_limit(cum) -> float:
+    """K3's relative limit for inputs whose cumsum(dt A), as the plain
+    version returns it, is `cum` (see SSD_REL_TOL)."""
+    return SSD_REL_TOL + torch.finfo(torch.float32).eps * \
+        cum.abs().max().item()
+
+
+# The whole serving path in f32 activations, kernels against plain versions,
+# relative to the largest logit, by family.  Every kernel takes f32 and sums
+# in IEEE f32, so the two paths differ by the order of f32 sums only.  On
+# one H100 that is 6.3e-6 on qwen3-1.7b, and 2.0e-2 to 2.6e-2 on mamba2-780m
+# and zamba2-1.2b: a random-weight Mamba2 stack amplifies the f32 rounding
+# of the SSD's cumsum (|cum| up to 1e4; 3e-4 of the first layer's output) as
+# it amplifies bf16 rounding.  The limits lie above those runs; the plain
+# path in bf16 activations is the control that must fail them (0.040 to
+# 0.046 on qwen3-1.7b, 0.56 to 0.66 on the SSM paths), or the check could
+# not tell a fault of bf16 size.
+PATH_F32_REL_TOL = {"dense": 1e-4, "ssm": 6e-2, "hybrid": 6e-2}
+
+KERNELS = ("flash_attention", "flash_decode", "ssd_intra")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
+    "ssd_intra": "src/repro/kernels/ssd.py:62",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "ssd_intra": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 
 
@@ -311,34 +349,214 @@ def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
             "bound_by": bound_by, "bytes": n_bytes, "flops": flops}
 
 
-def phase_kernels(cfg, batch, max_seq, prefill_len) -> dict:
+def _ssd_inputs(gen, b, s, nh, hp, n, dtype, rates="fast"):
+    """x, B and C in the compute dtype; dt and A in f32.  `rates="fast"`:
+    as a random-weight Mamba2 layer makes them, dt = softplus(N(0, 1)) and
+    A = -U(1, 16) (the `A_log` init); a chunk then decays by about e^-50
+    within 64 steps, so only the tiles near the diagonal show in y, only the
+    last steps in s_chunk, and decay underflows to 0.  `rates="slow"`: dt
+    log-uniform on [1e-3, 1e-1] (Mamba2's dt range at init) and A =
+    -U(0.05, 0.5), so a chunk of 256 steps decays by about e^-3 at most and
+    every (t, s) pair, every step's share of s_chunk and decay show."""
+    x = _randn(gen, (b, s, nh, hp), dtype)
+    u = torch.rand((b, s, nh), generator=gen, device="cuda")
+    v = torch.rand((nh,), generator=gen, device="cuda")
+    if rates == "fast":
+        dt = torch.nn.functional.softplus(_randn(gen, (b, s, nh),
+                                                 torch.float32))
+        A = -(1.0 + 15.0 * v)
+    else:
+        dt = torch.exp(math.log(1e-3) + math.log(100.0) * u)
+        A = -(0.05 + 0.45 * v)
+    Bp = _randn(gen, (b, s, n), dtype)
+    Cp = _randn(gen, (b, s, n), dtype)
+    return x, dt.contiguous(), A, Bp, Cp
+
+
+def _far_shares(args, chunk, want) -> dict:
+    """How much of the plain outputs `want` the far work carries, relative
+    to each output's largest magnitude: in y, the (t, s) pairs of tile pairs
+    at least two 64-step tiles apart (x kept in the first tile of each chunk
+    only, y read at steps 128 and later of a chunk, where only such pairs
+    reach); in s_chunk, the first tile's steps; and the smallest decay.  A
+    kernel that skipped or misplaced that work would be off by about these
+    shares, so each must be far above the limit."""
+    from repro_torch.kernels.ssd import ssd_intra_plain
+    x = args[0]
+    q = min(chunk, x.shape[1])
+    step = torch.arange(x.shape[1], device=x.device) % q
+    first = (step < 64).to(x.dtype)[None, :, None, None]
+    y, s_chunk = ssd_intra_plain(x * first, *args[1:], chunk)[:2]
+    late = step >= 128
+    return {"y": (y[:, late].abs().max() / want[0].abs().max()).item(),
+            "s_chunk": (s_chunk.abs().max() / want[1].abs().max()).item(),
+            "min_decay": want[2].min().item()}
+
+
+def _check_ssd(got, want, case, worst, far=None) -> None:
+    """K3's four outputs against the plain version's, each within
+    `ssd_limit` of its largest magnitude.  With `far` (`_far_shares` of
+    slow-rate inputs), also that the far work is visible: each far share at
+    least 10x the limit, and no chunk decayed below 1e-3."""
+    torch.cuda.synchronize()
+    limit = ssd_limit(want[3])
+    worst["limit"] = max(worst.get("limit", 0.0), limit)
+    if far is not None:
+        if min(far["y"], far["s_chunk"]) < 10 * limit or \
+                far["min_decay"] < 1e-3:
+            raise AssertionError(f"ssd_intra {case}: slow-rate inputs whose "
+                                 f"far work does not show: {far}")
+        for key in ("y", "s_chunk", "min_decay"):
+            worst[f"slow_far_{key}"] = min(worst.get(f"slow_far_{key}", 1.0),
+                                           far[key])
+    for name, g, w in zip(("y", "s_chunk", "decay", "cum"), got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"ssd_intra {case}: {name} shape "
+                                 f"{tuple(g.shape)} != {tuple(w.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"ssd_intra {case}: non-finite {name}")
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        if err > limit * scale:
+            raise AssertionError(f"ssd_intra {case}: {name} max abs error "
+                                 f"{err} > {limit} x {scale}")
+        worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
+        worst["abs"] = max(worst.get("abs", 0.0), err)
+
+
+def sweep_ssd(gen) -> dict:
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    cases = []
+    long = [(1, 512, 4, 64, 128, 256),             # S a multiple of q, N 128
+            (2, 300, 5, 64, 64, 256),              # ragged last chunk
+            (1, 1000, 2, 32, 128, 256)]
+    for shape in [(1, 64, 2, 16, 8, 16), (2, 96, 3, 16, 8, 32),
+                  (1, 80, 4, 32, 16, 32),          # tests/test_kernels.py
+                  (2, 40, 3, 16, 8, 64),           # S < chunk
+                  *long, (3, 7, 2, 16, 4, 16)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((shape, dtype, "fast"))
+    for shape in long:                             # every tile pair shows
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((shape, dtype, "slow"))
+    worst: dict = {}
+    for (b, s, nh, hp, n, chunk), dtype, rates in cases:
+        args = _ssd_inputs(gen, b, s, nh, hp, n, dtype, rates)
+        want = ssd_intra_plain(*args, chunk)
+        far = _far_shares(args, chunk, want) if rates == "slow" else None
+        _check_ssd(ssd_intra(*args, chunk), want,
+                   ((b, s, nh, hp, n, chunk), str(dtype), rates), worst, far)
+    return {"cases": len(cases), "max_rel_err": worst}
+
+
+def ssd_work(b, s, nh, hp, n, chunk, elt):
+    """(bytes, flops) that the function needs for these inputs: each input
+    read once, each output written once; the products over the steps at or
+    below the diagonal, C B^T once per (batch, chunk)."""
+    q = min(chunk, s)
+    nc = -(-s // q)
+    n_bytes = (elt * (b * s * nh * hp + 2 * b * s * n) + 4 * (b * s * nh + nh)
+               + 4 * (b * s * nh * hp + b * nc * nh * hp * n + b * nc * nh
+                      + b * nc * q * nh))
+    pairs = 0                                  # (t, s) pairs with s <= t
+    for c in range(nc):
+        m = min(q, s - c * q)
+        pairs += m * (m + 1) // 2
+    flops = b * (2.0 * n * pairs                       # C B^T
+                 + nh * (pairs * (2.0 * hp + 2)        # L o CB, then times x dt
+                         + 2.0 * s * hp * n))          # s_chunk
+    return n_bytes, flops
+
+
+def full_width_ssd(gen, cfg, prefill_len: int) -> dict:
+    """K3 at a prefill's shape of `cfg` (one row, bf16)."""
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    from repro_torch.models.ssm import ssm_dims
+    _, nh = ssm_dims(cfg)
+    b, s, hp, n, chunk = 1, prefill_len, cfg.ssm.head_dim, cfg.ssm.d_state, \
+        cfg.ssm.chunk
+    dtype = torch.bfloat16
+    slow: dict = {}               # the same shape at slow rates, not timed
+    sargs = _ssd_inputs(gen, b, s, nh, hp, n, dtype, "slow")
+    want = ssd_intra_plain(*sargs, chunk)
+    _check_ssd(ssd_intra(*sargs, chunk), want, (cfg.name, "full width, slow"),
+               slow, _far_shares(sargs, chunk, want))
+    del sargs, want
+    args = _ssd_inputs(gen, b, s, nh, hp, n, dtype)
+    worst: dict = {}
+    want = ssd_intra_plain(*args, chunk)
+    _check_ssd(ssd_intra(*args, chunk), want, (cfg.name, "full width"), worst)
+    limit = worst["limit"]
+    ms = time_ms(lambda: ssd_intra(*args, chunk))
+    plain_ms = time_ms(lambda: ssd_intra_plain(*args, chunk))
+    n_bytes, flops = ssd_work(b, s, nh, hp, n, chunk, 2)
+    bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    return {"arch": cfg.name,
+            "shape": {"B": b, "S": s, "nh": nh, "hp": hp, "N": n,
+                      "chunk": chunk, "dtype": "bfloat16"},
+            "max_rel_err": worst, "max_abs_err": worst["abs"],
+            "limit": limit, "slow_rates": slow,
+            "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,   # no single PyTorch call computes it
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+            "flops": flops}
+
+
+def phase_kernels(paths, batch, max_seq) -> dict:
+    """Every kernel over its sweep, then at the full-width shapes that the
+    serving paths give it (timed at the first path's shape)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {
-        "flash_attention": {
-            "sweep": sweep_flash_attention(gen),
-            "full_width": full_width_flash_attention(gen, cfg, prefill_len)},
-        "flash_decode": {
-            "sweep": sweep_flash_decode(gen),
-            "full_width": full_width_flash_decode(
-                gen, cfg, batch, max_seq, prefill_len, min(cfg.n_layers, 28))},
-    }
+    out = {name: {"full_width": []} for name in KERNELS}
+    out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
+    out["flash_decode"]["sweep"] = sweep_flash_decode(gen)
+    out["ssd_intra"]["sweep"] = sweep_ssd(gen)
+    for cfg, prefill_len in paths:
+        if cfg.family in ("dense", "hybrid"):
+            n_attn = cfg.n_layers if cfg.family == "dense" else \
+                cfg.n_layers // cfg.attn_every
+            out["flash_attention"]["full_width"].append(dict(
+                arch=cfg.name,
+                **full_width_flash_attention(gen, cfg, prefill_len)))
+            out["flash_decode"]["full_width"].append(dict(
+                arch=cfg.name, **full_width_flash_decode(
+                    gen, cfg, batch, max_seq, prefill_len, n_attn)))
+        if cfg.family in ("ssm", "hybrid"):
+            out["ssd_intra"]["full_width"].append(
+                full_width_ssd(gen, cfg, prefill_len))
     emit("kernels", tolerance={"float32": TOL[torch.float32],
-                               "bfloat16": TOL[torch.bfloat16]}, **out)
+                               "bfloat16": TOL[torch.bfloat16],
+                               "ssd_intra_relative":
+                                   "2e-4 + eps_f32 * max|cum|"}, **out)
     return out
 
 
-def reset_counters() -> None:
+def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
-    flash_attention.launches = 0
-    flash_decode.launches = 0
+    from repro_torch.kernels.ssd import ssd_intra
+    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
+            "ssd_intra": ssd_intra}
+
+
+def reset_counters() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counters() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
-    return {"flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def expected_launches(cfg, prefills: int, decodes: int) -> dict:
+    """Launches of each kernel on a serving run: K1 per attention layer of a
+    prefill, K2 per attention layer of a decode step, K3 per Mamba2 layer of
+    a prefill (the hybrid's attention is one shared block per group)."""
+    n_attn = {"dense": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    n_ssm = 0 if cfg.family == "dense" else cfg.n_layers
+    return {"flash_attention": prefills * n_attn,
+            "flash_decode": decodes * n_attn,
+            "ssd_intra": prefills * n_ssm}
 
 
 def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
@@ -377,13 +595,12 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
     decodes = eng.kinds_log.count("decode")
     assert stats["requests"] == n_requests, stats
     assert prefills == n_requests, (prefills, n_requests)
-    assert launches["flash_attention"] == prefills * cfg.n_layers, launches
-    assert launches["flash_decode"] == decodes * cfg.n_layers, launches
+    assert launches == expected_launches(cfg, prefills, decodes), launches
     outputs = {r.req_id: r.output for r in eng.done}
     for out in outputs.values():
         assert len(out) >= 2 and all(0 <= t < cfg.vocab_size for t in out)
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
-         init_seconds=init_s, batch=batch, max_seq=max_seq,
+         params_analytic=cfg.param_count(), init_seconds=init_s, batch=batch, max_seq=max_seq,
          prefill_len=prefill_len, stats=stats, prefills=prefills,
          decode_iterations=decodes, launches=launches,
          peak_memory_bytes=peak)
@@ -396,11 +613,20 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
     # and the differences pass through every later layer.  The limit is what
     # bf16 itself costs on this input: the kernel path may lie no farther
     # from the plain path than the plain path lies from the f32 computation
-    # (and never needs to be closer than 5e-2 on logits of size O(1)).
-    ref_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    # (and never needs to be closer than 5e-2 on logits of size O(1)).  On
+    # the SSM paths that rule is loose (a random-weight Mamba2 stack turns
+    # bf16 rounding into logit changes of about half their size), so the
+    # kernel path is also run with f32 activations and held to the f32 plain
+    # path within PATH_F32_REL_TOL of the largest logit.  The plain path of
+    # the SSD is `ssm_impl="chunked"` (K3's plain version is the same
+    # function in the same order).
+    ref_cfg = dataclasses.replace(cfg, attention_impl="reference",
+                                  ssm_impl="chunked")
     models = {"kernel": model, "plain": build_model(ref_cfg),
               "f32": build_model(dataclasses.replace(
-                  ref_cfg, compute_dtype="float32"))}
+                  ref_cfg, compute_dtype="float32")),
+              "kernel_f32": build_model(dataclasses.replace(
+                  cfg, compute_dtype="float32"))}
     toks = torch.from_numpy(requests()[0].prompt)[None].to("cuda")
     batch_in = {"tokens": torch.cat([toks, toks.flip(1)]).long()}
     logits = {}
@@ -417,13 +643,21 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
         e = {"kernel_vs_plain": diff("kernel", "plain"),
              "kernel_vs_f32": diff("kernel", "f32"),
              "plain_vs_f32": diff("plain", "f32"),
+             "f32_kernel_vs_plain": diff("kernel_f32", "f32"),
              "logits_abs_max": logits["f32"][what].abs().max().item()}
         e["limit"] = max(5e-2, e["plain_vs_f32"])
+        e["f32_limit"] = PATH_F32_REL_TOL[cfg.family] * e["logits_abs_max"]
         assert math.isfinite(e["kernel_vs_plain"]), (what, e)
         assert e["kernel_vs_plain"] <= e["limit"], (what, e)
         assert e["kernel_vs_f32"] <= 1.25 * e["plain_vs_f32"], (what, e)
+        assert math.isfinite(e["f32_kernel_vs_plain"]), (what, e)
+        assert e["f32_kernel_vs_plain"] <= e["f32_limit"], (what, e)
+        # the bf16 control: bf16 activations alone fail the f32 limit
+        assert e["plain_vs_f32"] > e["f32_limit"], (what, e)
         errs[what] = e
     del logits, models
+    first = first_layer_vs_plain(cfg, model, params, batch_in) \
+        if cfg.family in ("ssm", "hybrid") else None
 
     ref_eng = ServeEngine(ref_cfg, batch=batch, max_seq=max_seq,
                           prefill_len=prefill_len, instrument=False)
@@ -435,8 +669,45 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
         same += sum(a == b for a, b in zip(out, r.output))
     emit("serve_vs_plain", logits_max_abs_err=errs,
          greedy_tokens_agree=same / max(total, 1), tokens_compared=total,
-         plain_path_stats=ref_stats)
+         first_layer=first, plain_path_stats=ref_stats)
     return eng, launches, params
+
+
+def first_layer_vs_plain(cfg, model, params, batch_in) -> dict:
+    """The first Mamba2 layer of the prompt through K3 (`ssm_impl="cuda"`)
+    and through `ssd_chunked`, from the same bf16 projections.  A stack of
+    random-weight Mamba2 layers amplifies rounding differences from layer to
+    layer (bf16 activations move its logits by about half their size), so
+    the whole-model rule above can only bound the kernel path loosely; one
+    layer cannot hide a fault.  The SSD output and final state are f32 from
+    the same inputs: held to K3's relative limit for these inputs
+    (`ssd_limit`).  The block output is bf16: held to 2e-2 of its largest
+    magnitude (a few bf16 steps)."""
+    from repro_torch.kernels.ssd import ssd_intra_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    p = T.layer_params(params, cfg, 0)
+    x = T.embed_tokens(params, cfg, model.dims, batch_in["tokens"])
+    h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+    _, xh, Bp, Cp, dt, _ = S._project(p["ssm"], cfg, h, h.dtype)
+    A = S.a_of(p["ssm"])
+    out = {}
+    got = S.ssd("cuda", xh, dt, A, Bp, Cp, cfg.ssm.chunk)
+    want = S.ssd("chunked", xh, dt, A, Bp, Cp, cfg.ssm.chunk)
+    blocks = [S.mamba2_block(p["ssm"], cfg, h, impl=impl)
+              for impl in ("cuda", "chunked")]
+    lim = ssd_limit(ssd_intra_plain(xh, dt, A, Bp, Cp, cfg.ssm.chunk)[3])
+    for name, g, w, limit in (("ssd_y", got[0], want[0], lim),
+                              ("ssd_h_final", got[1], want[1], lim),
+                              ("block_out", *blocks, 2e-2)):
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), name
+        scale = w.abs().max().item()
+        rel = (g - w).abs().max().item() / max(scale, 1e-30)
+        assert rel <= limit, (name, rel, limit)
+        out[name] = {"max_rel_err": rel, "scale": scale, "limit": limit}
+    return out
 
 
 def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
@@ -483,29 +754,62 @@ def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:70], "ms": ms, "calls": n}
                     for k, ms, n in rows[:8]]}
-    emit("trace", steps=steps, **out)
+    emit("trace", arch=eng.cfg.name, steps=steps, **out)
+
+
+BLOCKS = {"dense": ("attn", "mlp"), "ssm": ("mamba",),
+          "hybrid": ("mamba", "shared_attn")}
 
 
 def phase_profile(eng) -> None:
+    """The interval profile of the serving run.  For the SSM families also
+    the traced FLOPs of a prefill's mamba block through the kernel path
+    (`ssm_impl="cuda"`) over those through `ssd_chunked`, which the
+    reference's table traces."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.blocks_lm import build_block_table
+    from repro_torch.models.model_zoo import build_model
     prof = eng.profile()
     names = prof.table.names
     assert prof.n_intervals >= 1
-    assert any(n.startswith("prefill/") for n in names)
-    assert any(n.startswith("decode/") for n in names)
-    emit("profile", n_intervals=prof.n_intervals, blocks=list(names))
+    for kind in ("prefill", "decode"):
+        for block in BLOCKS[eng.cfg.family]:
+            assert f"{kind}/{block}" in names, (kind, block, names)
+    extra = {}
+    if eng.cfg.family in ("ssm", "hybrid"):
+        shape = ShapeConfig("p", "prefill", eng.prefill_len, 1)
+        flops = {}
+        for impl in ("cuda", "chunked"):
+            tab = build_block_table(
+                build_model(dataclasses.replace(eng.cfg, ssm_impl=impl)),
+                shape, train=False, unit="flops")
+            flops[impl] = tab.blocks[tab.id_of("mamba")].cost_flops
+        extra["mamba_prefill_traced_flops"] = flops
+        extra["mamba_flops_ratio_cuda_vs_chunked"] = \
+            flops["cuda"] / flops["chunked"]
+    emit("profile", arch=eng.cfg.name, n_intervals=prof.n_intervals,
+         blocks=list(names), **extra)
 
 
 # ---------------------------------------------------------------------------
+
+# (arch, prefill_len): every path at full width and depth, bf16, random
+# weights from seed 0.  The SSM paths prefill 512 steps: two SSD chunks, so
+# the inter-chunk carry is on the path.
+PATHS = (("qwen3-1.7b", 256), ("mamba2-780m", 512), ("zamba2-1.2b", 512))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,serve,profile")
+    ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
+                    help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
                     help="build with -Xptxas -v and write the compiler's "
                          "output (registers, spills) to FILE")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -514,34 +818,44 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config
 
-    cfg = get_config("qwen3-1.7b")         # full width and depth
-    batch, max_seq, prefill_len, n_requests = 8, 1024, 256, 16
+    chosen = args.paths.split(",")
+    paths = [(get_config(a), pl) for a, pl in PATHS if a in chosen]
+    batch, max_seq, n_requests = 8, 1024, 16
 
     dev = phase_device()
     if "build" in phases:
         phase_build(args.ptxas)
-    checks = phase_kernels(cfg, batch, max_seq, prefill_len) \
+    checks = phase_kernels(paths, batch, max_seq) \
         if "kernels" in phases else None
     if "serve" not in phases:
         return 0
-    eng, launches, params = phase_serve(cfg, batch, max_seq, prefill_len,
-                                        n_requests)
-    if "trace" in phases:
-        phase_trace(eng, params, prefill_len)
-    if "profile" in phases:
-        phase_profile(eng)
-    if checks is None:
+    per_path = {}
+    for cfg, prefill_len in paths:
+        eng, launches, params = phase_serve(cfg, batch, max_seq, prefill_len,
+                                            n_requests)
+        per_path[cfg.name] = launches
+        if "trace" in phases:
+            phase_trace(eng, params, prefill_len)
+        if "profile" in phases:
+            phase_profile(eng)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if checks is None or len(paths) < len(PATHS):
         return 0
 
     kernels = []
-    for name in ("flash_attention", "flash_decode"):
-        fw = checks[name]["full_width"]
+    for name in KERNELS:
+        fw = checks[name]["full_width"][0]
+        launches = {arch: n[name] for arch, n in per_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(launches.values()),
+            "launches_per_path": launches, "shape_of": fw["arch"],
             "max_abs_err": fw["max_abs_err"], "ms": fw["ms"],
             "plain_ms": fw["plain_ms"], "bound_ms": fw["bound_ms"],
             "bound_by": fw["bound_by"], "library_ms": fw["library_ms"]})
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)
     return 0

@@ -1,6 +1,7 @@
 # Counterpart of src/repro/configs/base.py.  Pure data, copied; ``dtype_of``
-# returns torch dtypes and ``attention_impl`` gains the value "cuda" (the
-# port's default).  Nothing of the module is left unported.
+# returns torch dtypes, and ``attention_impl`` and ``ssm_impl`` gain the value
+# "cuda" (the port's default for both).  Nothing of the module is left
+# unported.
 """Architecture / shape / run configuration dataclasses.
 
 Every assigned architecture gets a module in ``repro_torch.configs`` exporting a
@@ -82,11 +83,12 @@ class ArchConfig:
     compute_dtype: str = "bfloat16"
     # implementation switches (perf levers; see EXPERIMENTS §Perf)
     # "cuda" = the hand-written kernels (kernels/flash_attention.py,
-    # kernels/flash_decode.py); on a CPU tensor it resolves to their plain
-    # versions.  "chunked" and "pallas" are values of the JAX package that
-    # the port does not implement yet.
+    # kernels/flash_decode.py; kernels/ssd.py plus the inter-chunk
+    # recurrence of kernels/ops.ssd); on a CPU or meta tensor it resolves to
+    # their plain versions.  "pallas" (both) and attention's "chunked" are
+    # values of the JAX package that the port does not implement.
     attention_impl: str = "cuda"      # cuda | reference
-    ssm_impl: str = "chunked"         # reference | chunked | pallas
+    ssm_impl: str = "cuda"            # cuda | chunked | reference
     attn_chunk: int = 1024            # KV chunk for streaming attention
     attn_causal_skip: bool = False    # skip above-diagonal kv blocks (§Perf)
     parallel_block: bool = False      # PaLM-style attn∥mlp (1 TP AR/layer)

@@ -1,6 +1,7 @@
-# Counterpart of src/repro/core/blocks_lm.py, dense branch.  Not ported yet:
-# the MoE, SSM, hybrid and enc-dec branches with their virtual blocks, and
-# `_train_scale` (the traced forward+backward ratio of the training step).
+# Counterpart of src/repro/core/blocks_lm.py: the dense, SSM and hybrid
+# branches.  Not ported yet: the MoE and enc-dec branches with their virtual
+# blocks, and `_train_scale` (the traced forward+backward ratio of the
+# training step).
 """Per-architecture BlockTable construction (the "interval analysis pass").
 
 This is the analogue of the paper's LLVM pass walking the IR: each model
@@ -8,7 +9,8 @@ block is traced once on ``meta`` tensors (shapes and dtypes only, no
 allocation even at full width), its ATen op count is recorded as the block's
 IR size, and the step's hook-stream program is laid out.  The trace runs on
 tensors that are not on the card, so it goes through the kernels' plain
-versions and never reaches a kernel launch.
+versions (K3's included, with ``ssm_impl="cuda"``) and never reaches a
+kernel launch.
 """
 from __future__ import annotations
 
@@ -65,15 +67,23 @@ def block_functions(model: Model, shape: ShapeConfig):
         h = L.rmsnorm(p["norm"], xx, cfg.norm_eps)
         return head_loss(h.to(dt) @ p["head"], lbl)
 
-    return [
-        ("embed", lambda p, t: L.embed_lookup(p, t, dt), (emb_sp, toks)),
-        ("attn", lambda p, xx, pp: T._attn_block(
-            p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
-         (lp, x, pos)),
-        ("mlp", lambda p, xx: T._mlp_block(p, cfg, xx, plus_one=False,
-                                           aux={}), (lp, x)),
-        ("head", head_fn, (head_sp, x, toks)),
-    ]
+    blocks = [("embed", lambda p, t: L.embed_lookup(p, t, dt), (emb_sp, toks))]
+    if cfg.family in ("ssm", "hybrid"):
+        blocks.append(("mamba", lambda p, xx: T.ssm_layer(p, cfg, xx)[0],
+                       (lp, x)))
+    if cfg.family == "hybrid":
+        sh_sp = _spec_struct(T.shared_attn_specs(cfg, dims), dt)
+        blocks.append(("shared_attn", lambda p, xx, pp: T._shared_attn_block(
+            {"shared_attn": p}, cfg, dims, xx, pp)[0], (sh_sp, x, pos)))
+    if cfg.family == "dense":
+        blocks += [
+            ("attn", lambda p, xx, pp: T._attn_block(
+                p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
+             (lp, x, pos)),
+            ("mlp", lambda p, xx: T._mlp_block(p, cfg, xx, plus_one=False,
+                                               aux={}), (lp, x)),
+        ]
+    return blocks + [("head", head_fn, (head_sp, x, toks))]
 
 
 def build_block_table(model: Model, shape: ShapeConfig,
@@ -102,8 +112,19 @@ def build_block_table(model: Model, shape: ShapeConfig,
         return len(blocks) - 1
 
     prog: List[Segment] = [Segment((add("embed"),), 1)]
-    i_attn, i_mlp = add("attn"), add("mlp")
-    prog.append(Segment((i_attn, i_mlp), cfg.n_layers))
+    if cfg.family == "ssm":
+        prog.append(Segment((add("mamba"),), cfg.n_layers))
+    elif cfg.family == "hybrid":
+        i_ssm, i_sh = add("mamba"), add("shared_attn")
+        ae, n_groups, rem = T._hybrid_groups(cfg)
+        for _ in range(n_groups):
+            prog.append(Segment((i_ssm,), ae))
+            prog.append(Segment((i_sh,), 1))
+        if rem:
+            prog.append(Segment((i_ssm,), rem))
+    else:
+        i_attn, i_mlp = add("attn"), add("mlp")
+        prog.append(Segment((i_attn, i_mlp), cfg.n_layers))
     prog.append(Segment((add("head"),), 1))
 
     if unit == "flops":

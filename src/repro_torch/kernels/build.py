@@ -34,6 +34,8 @@ SIGNATURES = {
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _F, _F, _P],
     "rt_flash_decode_tile": [],
+    "rt_ssd_intra": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -137,6 +139,6 @@ def check(err: int, what: str) -> None:
     if err == 0:
         return
     if err < 0:
-        raise RuntimeError(f"{what}: the kernel does not take this head_dim "
-                           f"or dtype (code {err})")
+        raise RuntimeError(f"{what}: the kernel does not take these sizes "
+                           f"or this dtype (code {err})")
     raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

@@ -4,11 +4,12 @@
 """Serving launcher (batched requests, continuous batching).
 
 Runs on the card; `--device cpu` is the only way onto the CPU.  The first
-call on the card builds the CUDA kernels.
+call on the card builds the CUDA kernels.  The dense (qwen3-1.7b, ...), SSM
+(mamba2-780m) and hybrid (zamba2-1.2b) families are served.
 
 Example:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
-        --requests 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --requests 16 --prefill-len 512 --max-seq 1024
 """
 from __future__ import annotations
 

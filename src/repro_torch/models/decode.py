@@ -1,12 +1,19 @@
-# Counterpart of src/repro/models/decode.py, dense family only.  Not ported
-# yet: the int8 cache (`_write_kv_quant`), the SSM and hybrid prefill and
-# decode (`_ssm_prefill`, `_hybrid_prefill`, the conv-state helpers).
-"""Prefill and single-token decode over the stacked KV cache.
+# Counterpart of src/repro/models/decode.py: the dense, SSM and hybrid
+# families.  Not ported yet: the int8 cache (`_write_kv_quant`) and the MoE
+# branch of the decode step.
+"""Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
-prefill copies each layer's k/v into the cache's first ``s`` positions, the
-decode step writes one token per row at that row's length.  Both return the
-same cache object for the reference's call shape ``logits, cache, aux``.
+prefill copies each layer's k/v, SSM state and conv window into the cache,
+the decode step writes one token per row at that row's length and updates
+each layer's SSM state where it lies.  Both return the same cache object for
+the reference's call shape ``logits, cache, aux``.
+
+One deliberate difference: the reference's SSM prefill calls
+``ssd_chunked`` directly; here it goes through ``cfg.ssm_impl``, so the
+default prefill runs the intra-chunk kernel K3 (as the decode step's
+attention is the flash-decode kernel).  The two compute the same function:
+``ops.ssd`` and ``ssd_chunked`` agree within 1e-4 (tests/test_kernels.py).
 """
 from __future__ import annotations
 
@@ -17,10 +24,23 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
-    ModelDims, _mlp_block, decoder_stack, embed_tokens, layer_params,
-    positions_for, require_ported, rope_tables, unembed,
+    ModelDims, _hybrid_groups, _mlp_block, _shared_attn_block, decoder_stack,
+    embed_tokens, layer_params, positions_for, require_ported, rope_tables,
+    unembed,
 )
+
+
+def _split_conv(cfg: ArchConfig, conv: torch.Tensor):
+    d_inner, _ = S.ssm_dims(cfg)
+    n = cfg.ssm.d_state
+    return (conv[..., :d_inner], conv[..., d_inner:d_inner + n],
+            conv[..., d_inner + n:])
+
+
+def _merge_conv(parts) -> torch.Tensor:
+    return torch.cat(parts, dim=-1)
 
 
 def _write_index(lengths: torch.Tensor, capacity: int):
@@ -61,15 +81,56 @@ def lm_prefill(params, cfg: ArchConfig, dims: ModelDims, tokens,
     b, s = tokens.shape
     positions = positions_for(tokens)
     x = embed_tokens(params, cfg, dims, tokens)
-    x, aux, (ks, vs) = decoder_stack(params, cfg, dims, x, positions,
-                                     collect_kv=True, plus_one=plus_one)
-    for i in range(cfg.n_layers):                  # in place, layer by layer
-        cache["k"][i, :, :s].copy_(ks[i])
-        cache["v"][i, :, :s].copy_(vs[i])
+    if cfg.family == "ssm":
+        x, aux = _ssm_prefill(params, cfg, x, cache)
+    elif cfg.family == "hybrid":
+        x, aux = _hybrid_prefill(params, cfg, dims, x, positions, cache)
+    else:
+        x, aux, (ks, vs) = decoder_stack(params, cfg, dims, x, positions,
+                                         collect_kv=True, plus_one=plus_one)
+        for i in range(cfg.n_layers):              # in place, layer by layer
+            cache["k"][i, :, :s].copy_(ks[i])
+            cache["v"][i, :, :s].copy_(vs[i])
     cache["length"].fill_(s)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
     logits = unembed(params, cfg, dims, x[:, -1:])
     return logits, cache, aux
+
+
+def _ssm_prefill_layer(params, cfg, i, x, cache):
+    """One Mamba2 layer over the prompt; its final SSM state and conv
+    window go into layer ``i`` of the cache, in place."""
+    p = layer_params(params, cfg, i)
+    h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+    dtype = h.dtype
+    z, xh, Bp, Cp, dt, conv_st = S._project(p["ssm"], cfg, h, dtype)
+    y, h_fin = S.ssd(cfg.ssm_impl, xh, dt, S.a_of(p["ssm"]), Bp, Cp,
+                     cfg.ssm.chunk)
+    cache["ssm"][i].copy_(h_fin)
+    cache["conv"][i].copy_(_merge_conv(conv_st))
+    return x + S._finish(p["ssm"], cfg, y, xh, dt, z, dtype)
+
+
+def _ssm_prefill(params, cfg, x, cache):
+    for i in range(cfg.n_layers):
+        x = _ssm_prefill_layer(params, cfg, i, x, cache)
+    return x, {}
+
+
+def _hybrid_prefill(params, cfg, dims, x, positions, cache):
+    ae, n_groups, _ = _hybrid_groups(cfg)
+    s = x.shape[1]
+    rope = rope_tables(cfg, positions)
+    for g in range(n_groups):
+        for i in range(g * ae, (g + 1) * ae):
+            x = _ssm_prefill_layer(params, cfg, i, x, cache)
+        x, (k, v) = _shared_attn_block(params, cfg, dims, x, positions,
+                                       collect_kv=True, rope=rope)
+        cache["k"][g, :, :s].copy_(k)
+        cache["v"][g, :, :s].copy_(v)
+    for i in range(n_groups * ae, cfg.n_layers):
+        x = _ssm_prefill_layer(params, cfg, i, x, cache)
+    return x, {}
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +146,28 @@ def lm_decode(params, cfg: ArchConfig, dims: ModelDims, token,
     plus_one = cfg.name.startswith("gemma")
     lengths = cache["length"]                        # [B] int32
     positions = lengths[:, None]
-    attend_len = lengths + 1                         # includes this token
     x = embed_tokens(params, cfg, dims, token)
-    windows = cfg.layer_windows()
     aux: Dict = {}
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _ssm_decode_layer(params, cfg, i, x, cache)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, dims, x, positions, cache)
+    else:
+        x = _dense_decode(params, cfg, dims, x, positions, cache, aux,
+                          plus_one=plus_one)
+    lengths.add_(1)            # every row, active or not, as the reference
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
+    logits = unembed(params, cfg, dims, x)
+    return logits, cache, aux
+
+
+def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one):
+    lengths = cache["length"]
+    attend_len = lengths + 1                         # includes this token
+    windows = cfg.layer_windows()
     rope = rope_tables(cfg, positions)               # once for all layers
     index = _write_index(lengths, cache["k"].shape[2])
-
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
         h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
@@ -110,8 +186,41 @@ def lm_decode(params, cfg: ArchConfig, dims: ModelDims, token,
         else:
             x = x + attn_out
             x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)
+    return x
 
-    lengths.add_(1)            # every row, active or not, as the reference
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
-    logits = unembed(params, cfg, dims, x)
-    return logits, cache, aux
+
+def _ssm_decode_layer(params, cfg, i, x, cache):
+    """One Mamba2 layer for one token: layer ``i``'s SSM state is updated
+    where it lies in the cache, its conv window copied back in place."""
+    p = layer_params(params, cfg, i)
+    h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+    conv_l = cache["conv"][i]
+    out, _, conv_new = S.mamba2_decode(p["ssm"], cfg, h, cache["ssm"][i],
+                                       _split_conv(cfg, conv_l))
+    conv_l.copy_(_merge_conv(conv_new))
+    return x + out
+
+
+def _hybrid_decode(params, cfg, dims, x, positions, cache):
+    ae, n_groups, _ = _hybrid_groups(cfg)
+    lengths = cache["length"]
+    attend_len = lengths + 1                         # includes this token
+    rope = rope_tables(cfg, positions)
+    index = _write_index(lengths, cache["k"].shape[2])
+    for g in range(n_groups):
+        for i in range(g * ae, (g + 1) * ae):
+            x = _ssm_decode_layer(params, cfg, i, x, cache)
+        p_sh = params["shared_attn"]
+        hh = L.rmsnorm(p_sh["norm"], x, cfg.norm_eps)
+        q, k, v = A.qkv(p_sh["attn"], cfg.attn, dims.layout, hh, positions,
+                        x.dtype, rope_tables=rope)
+        k_l, v_l = _write_kv(cache["k"][g], cache["v"][g], k, v, lengths,
+                             index)
+        ctx = A.attend_decode(q, k_l, v_l, attend_len, dims.layout,
+                              window=-1, impl=cfg.attention_impl)
+        x = x + A.out_proj(p_sh["attn"], dims.layout, ctx, x.dtype)
+        hh = L.rmsnorm(p_sh["mlp_norm"], x, cfg.norm_eps)
+        x = x + L.mlp(p_sh["mlp"], hh, cfg.act, x.dtype)
+    for i in range(n_groups * ae, cfg.n_layers):
+        x = _ssm_decode_layer(params, cfg, i, x, cache)
+    return x

@@ -1,6 +1,7 @@
-# Counterpart of src/repro/models/model_zoo.py.  Not ported yet:
-# `cross_entropy` and `Model.loss` (training), `Model.axes`, the dry-run
-# input specs, and every family but the dense decoder LM.
+# Counterpart of src/repro/models/model_zoo.py: the dense, SSM and hybrid
+# decoder LMs.  Not ported yet: `cross_entropy` and `Model.loss` (training),
+# `Model.axes`, the dry-run input specs, and the MoE, enc-dec and VLM
+# families.
 """Unified model facade: build an architecture, expose init / forward /
 prefill / decode plus cache construction.
 
@@ -20,6 +21,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode as D
 from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelDims
 
@@ -49,9 +51,20 @@ class Model:
     # ---- serving ---------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int):
         cfg = self.cfg
-        return KC.init_cache(cfg.n_layers, batch, max_seq,
-                             self.dims.layout.kv_pad, cfg.attn.head_dim,
-                             dtype_of(cfg.compute_dtype), device=self.device,
+        kv_pad = self.dims.layout.kv_pad if self.dims.layout else 0
+        hd = cfg.attn.head_dim if cfg.attn else 0
+        ssm = None
+        n_kv_layers = cfg.n_layers
+        if cfg.family in ("ssm", "hybrid"):
+            _, nh = S.ssm_dims(cfg)
+            ssm = dict(n_layers=cfg.n_layers, n_heads=nh,
+                       head_dim=cfg.ssm.head_dim, d_state=cfg.ssm.d_state,
+                       d_conv=cfg.ssm.d_conv, conv_dim=S.conv_dim(cfg))
+        if cfg.family == "hybrid":              # one kv layer per group
+            n_kv_layers = T._hybrid_groups(cfg)[1]
+        return KC.init_cache(n_kv_layers, batch, max_seq, kv_pad, hd,
+                             dtype_of(cfg.compute_dtype), ssm=ssm,
+                             device=self.device,
                              quant=cfg.cache_quant == "int8")
 
     @torch.no_grad()

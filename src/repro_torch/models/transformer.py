@@ -1,16 +1,17 @@
-# Counterpart of src/repro/models/transformer.py, dense family only.  Not
-# ported yet: the MoE, SSM and hybrid layer bodies and stacks (`ssm_layer`,
-# `_hybrid_stack`, `_shared_attn_block`, `shared_attn_specs`), the VLM patch
-# projection, rematerialisation and grouped layer scans (training), and the
-# `shard(...)` constraints (identities on one device) and the `rng` /
-# `patch_embeds` arguments that only those families use.
-"""Decoder-only LM, dense family.
+# Counterpart of src/repro/models/transformer.py: the dense, SSM and hybrid
+# families.  Not ported yet: the MoE layer body and `_aux_zero`'s MoE keys,
+# the VLM patch projection, rematerialisation and grouped layer scans
+# (training), and the `shard(...)` constraints (identities on one device)
+# and the `rng` / `patch_embeds` arguments that only those families use.
+"""Decoder-only LM covering the dense, SSM and hybrid families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
 leading "layer" axis.  The reference scans over that axis; here it is a Python
 loop that slices layer ``i`` off every leaf (a view, no copy).  Per-layer
 static attention windows (gemma3's 5:1 local:global) ride along as Python
-ints.
+ints.  Hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers with one
+SHARED attention block after each group (its parameters live outside the
+stack and are reused).
 """
 from __future__ import annotations
 
@@ -23,13 +24,13 @@ import torch
 from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.attention import HeadLayout
 from repro_torch.models.layers import ParamSpec
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 _ROADMAP_ITEM = {
-    "moe": "MoE", "ssm": "SSM + hybrid with K3", "hybrid": "SSM + hybrid "
-    "with K3", "encdec": "enc-dec, VLM, int8 weights and cache",
+    "moe": "MoE", "encdec": "enc-dec, VLM, int8 weights and cache",
     "vlm": "enc-dec, VLM, int8 weights and cache",
 }
 
@@ -68,8 +69,20 @@ class ModelDims:
 def layer_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
     require_ported(cfg)
     d = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ssm_norm": L.rmsnorm_specs(d), "ssm": S.mamba2_specs(cfg)}
     return {
         "attn_norm": L.rmsnorm_specs(d),
+        "attn": A.attention_specs(cfg.attn, d, dims.layout),
+        "mlp_norm": L.rmsnorm_specs(d),
+        "mlp": L.mlp_specs(d, cfg.d_ff, glu=cfg.glu),
+    }
+
+
+def shared_attn_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "norm": L.rmsnorm_specs(d),
         "attn": A.attention_specs(cfg.attn, d, dims.layout),
         "mlp_norm": L.rmsnorm_specs(d),
         "mlp": L.mlp_specs(d, cfg.d_ff, glu=cfg.glu),
@@ -87,6 +100,8 @@ def lm_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
         specs["layers"] = L.stack_specs(per_layer, cfg.n_layers)
     else:
         specs["layers"] = {f"layer_{i}": per_layer for i in range(cfg.n_layers)}
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = shared_attn_specs(cfg, dims)
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"kernel": ParamSpec(
             (cfg.d_model, dims.vocab_pad), ("embed", "vocab"), "scaled")}
@@ -151,6 +166,12 @@ def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
     return x, kv, aux
 
 
+def ssm_layer(p, cfg, x, *, aux=None):
+    aux = {} if aux is None else aux
+    h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+    return x + S.mamba2_block(p["ssm"], cfg, h), aux
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
@@ -159,8 +180,16 @@ def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
 def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
                   *, collect_kv: bool = False, plus_one=False):
     """Run all layers full-sequence.  Returns (x, aux, kv or None); kv is a
-    pair of per-layer lists of [B,S,KVp,hd] tensors."""
+    pair of per-layer (hybrid: per-group) lists of [B,S,KVp,hd] tensors."""
     require_ported(cfg)
+    if cfg.family == "ssm":
+        aux: Dict = {}
+        for i in range(cfg.n_layers):
+            x, aux = ssm_layer(layer_params(params, cfg, i), cfg, x, aux=aux)
+        return x, aux, None
+    if cfg.family == "hybrid":
+        return _hybrid_stack(params, cfg, dims, x, positions,
+                             collect_kv=collect_kv)
     windows = cfg.layer_windows()
     rope = rope_tables(cfg, positions)           # once for all layers
     aux: Dict = {}
@@ -173,6 +202,49 @@ def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
             ks.append(k)
             vs.append(v)
     return x, aux, ((ks, vs) if collect_kv else None)
+
+
+def _hybrid_groups(cfg: ArchConfig):
+    ae = max(cfg.attn_every, 1)
+    n_groups = cfg.n_layers // ae
+    remainder = cfg.n_layers - n_groups * ae
+    return ae, n_groups, remainder
+
+
+def _shared_attn_block(params, cfg, dims, x, positions, *, collect_kv=False,
+                       rope=None):
+    """The hybrid's shared attention + MLP block over the sequence.  (The
+    decode step writes the new token's k/v into the cache between the
+    projection and the attention, so it runs these steps itself, as the
+    reference's `lm_decode` does.)"""
+    p = params["shared_attn"]
+    h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+    dt = x.dtype
+    q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
+                    rope_tables=rope)
+    ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
+                   dims.layout, causal=True, window=-1)
+    x = x + A.out_proj(p["attn"], dims.layout, ctx, dt)
+    h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    x = x + L.mlp(p["mlp"], h, cfg.act, dt)
+    return x, (k, v) if collect_kv else None
+
+
+def _hybrid_stack(params, cfg, dims, x, positions, *, collect_kv=False):
+    ae, n_groups, _ = _hybrid_groups(cfg)
+    rope = rope_tables(cfg, positions)           # once for all groups
+    ks, vs = [], []
+    for g in range(n_groups):
+        for i in range(g * ae, (g + 1) * ae):
+            x, _ = ssm_layer(layer_params(params, cfg, i), cfg, x)
+        x, kv = _shared_attn_block(params, cfg, dims, x, positions,
+                                   collect_kv=collect_kv, rope=rope)
+        if collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    for i in range(n_groups * ae, cfg.n_layers):
+        x, _ = ssm_layer(layer_params(params, cfg, i), cfg, x)
+    return x, {}, ((ks, vs) if collect_kv else None)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 # Counterpart of src/repro/serve/engine.py.  Not ported yet: the enc-dec
-# frames and VLM patches of `_insert` (those families are not ported).
+# frames and VLM patches of `_insert` (those families are not ported).  One
+# single-row prefill cache is reused for every prefill, where the reference
+# makes a new one each time.
 """Serving engine: continuous batching over a fixed-shape decode batch.
 
 Requests prefill into a single-row cache (fixed prefill length, padded) and
@@ -97,8 +99,8 @@ class ServeEngine:
     def reset(self):
         self.cache = self.model.init_cache(self.batch, self.max_seq)
         # one single-row cache for every prefill; a prefill only writes its
-        # first `prefill_len` positions, so the rest stays zero as in a
-        # fresh cache
+        # first `prefill_len` positions and overwrites the whole SSM and conv
+        # state, so the rest stays as in a fresh cache
         self.pre_cache = self.model.init_cache(1, self.max_seq)
         self.lengths = np.zeros(self.batch, np.int64)   # host mirror
         self.active = np.zeros(self.batch, bool)
@@ -124,10 +126,13 @@ class ServeEngine:
         batch = {"tokens": torch.from_numpy(p)[None].to(self.device)}
         logits, pre_cache, _ = self.model.prefill(self.model_params, batch,
                                                   self.pre_cache)
-        # copy row 0 of the single-row cache into the decode slot, in place
-        self.cache["k"][:, slot].copy_(pre_cache["k"][:, 0])
-        self.cache["v"][:, slot].copy_(pre_cache["v"][:, 0])
-        self.cache["length"][slot] = self.prefill_len
+        # copy row 0 of every key of the single-row cache into the decode
+        # slot, in place and on the device
+        for key, dst in self.cache.items():
+            if key == "length":
+                dst[slot].copy_(pre_cache[key][0])
+            else:
+                dst[:, slot].copy_(pre_cache[key][:, 0])
         self.lengths[slot] = self.prefill_len
         tok = greedy(logits)
         self.last_token[slot] = tok[0]

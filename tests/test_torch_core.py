@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_port import SSM_ARCHS
 from repro.configs import get_config as jget, reduced as jreduced
 from repro.configs.base import ShapeConfig as JShape
 from repro.core import blocks_lm as JB
@@ -89,16 +90,21 @@ def test_interval_builder_profiles_are_byte_equal(defer):
         assert ja[key].tobytes() == pa[key].tobytes(), key
 
 
-def _jax_dot_flops(jaxpr) -> float:
+def _jax_dot_flops(jaxpr, contracting_only: bool = False) -> float:
     """FLOPs of the dot_general equations alone, by the reference's own
-    `eqn_flops`, recursing into sub-jaxprs as `jaxpr_cost` does."""
+    `eqn_flops`, recursing into sub-jaxprs as `jaxpr_cost` does.
+    ``contracting_only`` leaves out dot_generals that contract nothing: the
+    elementwise products into which `jnp.einsum` splits a three-operand
+    einsum (ATen writes them as `mul`)."""
     total = 0.0
     for eqn in _as_jaxpr(jaxpr).eqns:
         subs, _ = _sub_jaxprs(eqn)
         for sj, mult in subs:
-            total += mult * _jax_dot_flops(sj)
+            total += mult * _jax_dot_flops(sj, contracting_only)
         if not subs and eqn.primitive.name == "dot_general":
-            total += eqn_flops(eqn)
+            (lhs_c, _), _ = eqn.params["dimension_numbers"]
+            if lhs_c or not contracting_only:
+                total += eqn_flops(eqn)
     return total
 
 
@@ -163,6 +169,88 @@ def test_block_table_matches_the_reference(kind, seq, batch):
             assert abs(pb.cost_ops - jb.cost_ops) <= 3 * batch * seq
         else:
             assert pb.cost_ops == pytest.approx(jb.cost_ops, rel=0.10), jb.name
+
+
+def _ssm_pair(arch, **replace):
+    jcfg = dataclasses.replace(jreduced(jget(arch), **SSM_ARCHS[arch]),
+                               attention_impl="reference")
+    pcfg = dataclasses.replace(reduced(get_config(arch), **SSM_ARCHS[arch]),
+                               **replace)
+    return jbuild(jcfg), build_model(pcfg, device="cpu")
+
+
+def _jax_ssm_jaxprs(model, shape):
+    cfg, dims = model.cfg, model.dims
+    dt = jnp.float32
+    b = max(shape.global_batch, 1)
+    s = shape.seq_len if shape.kind != "decode" else 1
+    x = jax.ShapeDtypeStruct((b, s, cfg.d_model), dt)
+    pos = jax.ShapeDtypeStruct((b, s), jnp.int32)
+    lp = JB._spec_struct(JT.layer_specs(cfg, dims), dt)
+    out = {"mamba": jax.make_jaxpr(
+        lambda p, xx: JT.ssm_layer(p, cfg, xx)[0])(lp, x)}
+    if cfg.family == "hybrid":
+        sh = JB._spec_struct(JT.shared_attn_specs(cfg, dims), dt)
+        out["shared_attn"] = jax.make_jaxpr(
+            lambda p, xx, pp: JT._shared_attn_block(
+                {"shared_attn": p}, cfg, dims, xx, pp)[0])(sh, x, pos)
+    return out
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+@pytest.mark.parametrize("kind,seq,batch", [("prefill", 40, 1),
+                                            ("decode", 64, 3)])
+def test_ssm_block_table_matches_the_reference(arch, kind, seq, batch):
+    """Both sides trace the same algorithm (`ssd_chunked`; the reference's
+    attention with `attention_impl="reference"`, the port's through the
+    kernels' plain versions): the same block names, step program and
+    matrix-product FLOPs per block, and FLOP-weighted costs within 10 %."""
+    jmodel, pmodel = _ssm_pair(arch, ssm_impl="chunked")
+    jshape = JShape("x", kind, seq, batch)
+    pshape = ShapeConfig("x", kind, seq, batch)
+    jtab = JB.build_block_table(jmodel, jshape, train=False, unit="flops")
+    ptab = PB.build_block_table(pmodel, pshape, train=False, unit="flops")
+    want = ["embed", "mamba"] + (["shared_attn"] if "zamba" in arch else []) \
+        + ["head"]
+    assert ptab.names == jtab.names == want
+    assert [dataclasses.asdict(s) for s in ptab.program] == \
+        [dataclasses.asdict(s) for s in jtab.program]
+
+    jaxprs = _jax_ssm_jaxprs(jmodel, jshape)
+    graphs = {name: trace_graph(fn, *args) for name, fn, args
+              in PB.block_functions(pmodel, pshape)}
+    for name, jaxpr in jaxprs.items():
+        assert matmul_flops(graphs[name]) == \
+            _jax_dot_flops(jaxpr, contracting_only=True), name
+        assert matmul_flops(graphs[name]) > 0
+    for jb, pb in zip(jtab.blocks, ptab.blocks):
+        if jb.name not in ("embed",):
+            assert pb.cost_ops == pytest.approx(jb.cost_ops, rel=0.10), jb.name
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_ssm_block_table_with_the_kernel_path(arch):
+    """With the default `ssm_impl="cuda"` the trace goes through K3's plain
+    version and `ops.ssd`: the same names and program as the reference, and
+    the mamba block's matrix-product FLOPs near those of `ssd_chunked` (the
+    inter-chunk term is skipped for the first chunk, whose state is 0)."""
+    jmodel, pmodel = _ssm_pair(arch)
+    assert pmodel.cfg.ssm_impl == "cuda"
+    shape = ShapeConfig("x", "prefill", 40, 1)
+    jtab = JB.build_block_table(jmodel, JShape("x", "prefill", 40, 1),
+                                train=False, unit="flops")
+    ptab = PB.build_block_table(pmodel, shape, train=False, unit="flops")
+    assert ptab.names == jtab.names
+    assert [dataclasses.asdict(s) for s in ptab.program] == \
+        [dataclasses.asdict(s) for s in jtab.program]
+    chunked = build_model(dataclasses.replace(pmodel.cfg, ssm_impl="chunked"),
+                          device="cpu")
+    fl = {}
+    for name, m in (("cuda", pmodel), ("chunked", chunked)):
+        fns = {n: (fn, args) for n, fn, args in PB.block_functions(m, shape)}
+        fn, args = fns["mamba"]
+        fl[name] = matmul_flops(trace_graph(fn, *args))
+    assert 0.8 < fl["cuda"] / fl["chunked"] <= 1.0, fl
 
 
 def test_trace_cost_counts_products_and_free_ops():

@@ -1,6 +1,6 @@
-"""The CUDA kernels against their plain versions, on the card.  These tests
-need a CUDA device and nvcc; without one they skip (decided inside the
-fixture, never at import).  Run them on the machine with the card:
+"""The CUDA kernels (K1, K2, K3) against their plain versions, on the card.
+These tests need a CUDA device and nvcc; without one they skip (decided
+inside the fixture, never at import).  Run them on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -56,3 +56,32 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(smoke):
     with pytest.raises(TypeError):
         flash_attention(q, k, k, group=2,
                         window=torch.tensor(4, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_ssd_intra_kernel_sweep(smoke):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = smoke.sweep_ssd(gen)
+    assert res["cases"] >= 22
+    assert res["max_rel_err"]["slow_far_min_decay"] > 1e-3
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(smoke):
+    from repro_torch.kernels.ssd import ssd_intra
+    x = torch.zeros((1, 8, 2, 16), device="cuda")
+    dt = torch.zeros((1, 8, 2), device="cuda")
+    A = -torch.ones(2, device="cuda")
+    b = torch.zeros((1, 8, 8), device="cuda")
+    with pytest.raises(TypeError):
+        ssd_intra(x.half(), dt, A, b.half(), b.half(), 16)
+    with pytest.raises(TypeError):
+        ssd_intra(x, dt.bfloat16(), A, b, b, 16)
+    with pytest.raises(ValueError):                   # head_dim 8
+        ssd_intra(x[..., :8].contiguous(), dt, A, b, b, 16)
+    with pytest.raises(ValueError):                   # d_state not 4k
+        ssd_intra(x, dt, A, b[..., :6].contiguous(), b[..., :6].contiguous(),
+                  16)
+    with pytest.raises(ValueError):                   # not contiguous
+        ssd_intra(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, b,
+                  b, 16)

@@ -43,9 +43,10 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_sources_were_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "flash_attention.py", "flash_decode.py", "build.py",
-            "chip_smoke.py", "convert.py"} <= names
+            "chip_smoke.py", "convert.py", "ssd.py", "ssm.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
+    assert (PKG / "kernels" / "csrc" / "ssd.cu").exists()
 
 
 def _module_names():

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import model_pair
+from _torch_port import SSM_ARCHS, model_pair
 from repro.serve import ServeEngine as JEngine
 from repro.serve import SyntheticRequests as JRequests
 from repro_torch.launch import serve as serve_cli
@@ -18,6 +18,11 @@ from repro_torch.serve.sampler import greedy, sample
 @pytest.fixture(scope="module")
 def setup():
     return model_pair("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module", params=list(SSM_ARCHS))
+def ssm_setup(request):
+    return model_pair(request.param, **SSM_ARCHS[request.param])
 
 
 def _outputs(eng):
@@ -49,10 +54,38 @@ def test_engine_matches_the_jax_engine(setup):
     assert pstats["tokens"] == jstats["tokens"]
 
 
+def test_ssm_engine_matches_the_jax_engine(ssm_setup):
+    """Prompts of 20 steps: two SSD chunks of 16, the last ragged, so the
+    inter-chunk carry and the copy of every cache key into the slot are on
+    the path."""
+    jcfg, jm, jp, pcfg, pm, pp = ssm_setup
+    kw = dict(batch=3, max_seq=64, prefill_len=20, instrument=False)
+    jeng = JEngine(jcfg, **kw)
+    peng = ServeEngine(pcfg, device="cpu", **kw)
+    jgen = JRequests(jcfg.vocab_size, prompt_len=18, mean_new=8, seed=0)
+    pgen = SyntheticRequests(pcfg.vocab_size, prompt_len=18, mean_new=8, seed=0)
+    jstats = jeng.run(jp, [jgen.request(i) for i in range(6)])
+    pstats = peng.run(pp, [pgen.request(i) for i in range(6)])
+    assert _outputs(peng) == _outputs(jeng)
+    assert pstats["iterations"] == jstats["iterations"]
+    assert peng.kinds_log == jeng.kinds_log
+    assert pstats["tokens"] == jstats["tokens"]
+
+
+def test_hybrid_idle_slot_counts_past_max_seq():
+    jcfg, jm, jp, pcfg, pm, pp = model_pair("zamba2-1.2b",
+                                            **SSM_ARCHS["zamba2-1.2b"])
+    _idle_slot_counts_past_max_seq(jcfg, jp, pcfg, pp)
+
+
 def test_idle_slot_counts_past_max_seq(setup):
+    jcfg, jm, jp, pcfg, pm, pp = setup
+    _idle_slot_counts_past_max_seq(jcfg, jp, pcfg, pp)
+
+
+def _idle_slot_counts_past_max_seq(jcfg, jp, pcfg, pp):
     """A finished slot's length keeps growing past the cache: its writes are
     dropped (no out-of-range index) and the other rows still match."""
-    jcfg, jm, jp, pcfg, pm, pp = setup
     kw = dict(batch=2, max_seq=24, prefill_len=8, instrument=False)
     prompts = [np.arange(1, 9, dtype=np.int32) * (i + 3) % 256
                for i in range(3)]
@@ -159,6 +192,15 @@ def test_sampling_engine_runs(setup):
     assert stats["requests"] == 2
     for r in eng.done:
         assert all(0 <= t < pcfg.vocab_size for t in r.output)
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_launcher_serves_the_ssm_families_on_cpu(arch, capsys):
+    stats = serve_cli.main(["--arch", arch, "--reduced", "--requests", "2",
+                            "--batch", "2", "--max-seq", "48",
+                            "--prefill-len", "20", "--device", "cpu"])
+    assert stats["requests"] == 2
+    assert '"tokens_per_s"' in capsys.readouterr().out
 
 
 def test_launcher_on_cpu(capsys):
