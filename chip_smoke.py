@@ -16,17 +16,20 @@ against the plain path on the card (in bf16 and in f32 activations), and
 builds the interval profile of the run.
 
 Every phase prints one JSON object on a line of its own.  The line before the
-last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
+last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths;
 error, time, the plain version's time, one library call's time as a yardstick
 that the port itself never calls, or null where no single call computes the
-function, and the least time the card could take).  The last line is
+function, and the least time the card could take, at the first path's shape,
+and the same at every path's shape, ``full_width``, and for K1 and K2 at one
+long shape, ``long``, timed and not gated).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase raises and the run exits
 non-zero; with no CUDA device it exits non-zero at once.
 
 ``--phases device,build,kernels`` and ``--paths mamba2-780m`` run a subset
 while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
-down by kernel with ``torch.profiler``.
+down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
+times K1 and K2 with every tile choice their launch plans choose from.
 """
 from __future__ import annotations
 
@@ -87,11 +90,15 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
     "ssd_intra": "src/repro/kernels/ssd.py:62",
 }
-SOURCES = {
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+SOURCES = {       # the kernel that the bf16 timings measure
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "ssd_intra": "src/repro_torch/kernels/csrc/ssd.cu",
 }
+SOURCES_ALL = {**{k: [v] for k, v in SOURCES.items()},
+               "flash_attention": [   # entry point and the f32 kernel, bf16
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   SOURCES["flash_attention"]]}
 
 
 def emit(phase: str, **kw) -> None:
@@ -176,23 +183,46 @@ def _check(name, got, want, dtype, case, worst):
 
 
 def sweep_flash_attention(gen) -> dict:
+    """K1 against its plain version.  Besides the shapes of
+    tests/test_kernels.py: S below 16 and S a multiple of no q tile (32, 64,
+    128) and no kv tile (16, 32, 64); grids that take each plan of the bf16
+    kernel (8, 4 and 2 row warps, by `attention_plan`); window edges inside
+    a tile, window 0 (every key masked: the mean of V) and soft-capping, in
+    both dtypes; bf16 at every head_dim."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for shape in [(1, 64, 2, 1, 16), (2, 96, 4, 2, 32), (1, 128, 8, 8, 64),
                   (2, 40, 6, 2, 16), (1, 200, 4, 2, 128), (1, 100, 4, 2, 256),
-                  (2, 333, 10, 2, 64)]:
-        for dtype in (torch.float32, torch.bfloat16):
+                  (2, 333, 10, 2, 64),
+                  (1, 5, 2, 1, 64), (2, 9, 4, 2, 128), (1, 13, 2, 2, 256),
+                  (1, 77, 4, 2, 16), (2, 150, 6, 3, 32)]:
+        for dtype in (f32, bf16):
             for causal in (True, False):
                 cases.append((shape, dtype, causal, None, 0.0, 1.0))
+    # every bf16 plan: 8 row warps (one kv warp) at head_dim 64, 128 and 256,
+    # 4 (two kv warps) at 64, 128, 256, 2 (four kv warps) at 128 and below
+    for shape in [(4, 300, 16, 4, 64), (4, 300, 16, 8, 128),
+                  (2, 1100, 8, 4, 256), (2, 400, 12, 4, 64),
+                  (1, 600, 16, 8, 128), (2, 520, 8, 8, 256),
+                  (1, 256, 16, 8, 128)]:
+        for causal in (True, False):
+            cases.append((shape, bf16, causal, None, 0.0, 1.0))
     for window in (8, 24, 100, 0, -1):
         for causal in (True, False):
-            cases.append(((2, 64, 4, 2, 16), torch.float32, causal, window,
-                          0.0, 1.0))
-            cases.append(((1, 300, 4, 2, 128), torch.bfloat16, causal, window,
-                          0.0, 1.0))
-    cases.append(((1, 32, 2, 2, 16), torch.float32, True, None, 20.0, 4.0))
-    cases.append(((1, 150, 4, 4, 64), torch.float32, True, 40, 20.0, 4.0))
+            cases.append(((2, 64, 4, 2, 16), f32, causal, window, 0.0, 1.0))
+            cases.append(((1, 300, 4, 2, 128), bf16, causal, window, 0.0, 1.0))
+    for shape, window in [((4, 300, 16, 4, 64), 40), ((4, 300, 16, 4, 64), 0),
+                          ((1, 600, 16, 8, 128), 100), ((1, 600, 16, 8, 128), 0),
+                          ((1, 200, 4, 2, 256), 50), ((2, 100, 4, 2, 16), 20),
+                          ((2, 9, 4, 2, 32), 3)]:
+        for causal in (True, False):
+            cases.append((shape, bf16, causal, window, 0.0, 1.0))
+    cases.append(((1, 32, 2, 2, 16), f32, True, None, 20.0, 4.0))
+    cases.append(((1, 150, 4, 4, 64), f32, True, 40, 20.0, 4.0))
+    cases.append(((1, 150, 4, 4, 64), bf16, True, 40, 20.0, 4.0))
+    cases.append(((1, 256, 16, 8, 128), bf16, True, None, 30.0, 4.0))
     worst: dict = {}
     for (b, s, h, kv, hd), dtype, causal, window, cap, scale in cases:
         q = _randn(gen, (b, s, h, hd), dtype, scale)
@@ -206,21 +236,40 @@ def sweep_flash_attention(gen) -> dict:
 
 
 def sweep_flash_decode(gen) -> dict:
+    """K2 against its plain version.  Besides the shapes of
+    tests/test_kernels.py: groups 1, 2, 3, 5, 8, 12 and 16 (a group above 8
+    heads takes two head blocks); lengths 1, exactly S and S + 5; lengths
+    and a window edge at the chunk boundaries of `split_plan` (at B 3, KV 2,
+    S 700: six chunks of 128 keys); every head_dim in both dtypes (at 16 a
+    warp step covers 16 keys in bf16, at 256 an f32 lane holds two
+    segments)."""
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for shape in [(2, 96, 4, 2, 32), (3, 50, 8, 4, 16), (2, 700, 10, 2, 128),
-                  (1, 1000, 4, 2, 256), (3, 130, 4, 4, 64)]:
-        for dtype in (torch.float32, torch.bfloat16):
+                  (1, 1000, 4, 2, 256), (3, 130, 4, 4, 64),
+                  (2, 300, 5, 1, 128), (2, 300, 8, 1, 64), (2, 300, 24, 2, 128),
+                  (2, 300, 12, 1, 64), (2, 300, 3, 1, 32), (1, 200, 16, 1, 128)]:
+        for dtype in (f32, bf16):
             cases.append((shape, dtype, "random", None, 0.0))
     for window, cap in [(8, 0.0), (-1, 20.0), (24, 20.0), (0, 0.0), (300, 0.0)]:
-        cases.append(((3, 50, 8, 4, 16), torch.float32, [50, 7, 30], window, cap))
-        cases.append(((3, 900, 4, 2, 128), torch.bfloat16, [900, 333, 1],
+        cases.append(((3, 50, 8, 4, 16), f32, [50, 7, 30], window, cap))
+        cases.append(((3, 900, 4, 2, 128), bf16, [900, 333, 1],
                       window, cap))
     # lengths beyond the cache (an idle slot keeps counting) and a row of 0
-    cases.append(((3, 50, 8, 4, 16), torch.float32, [53, 50, 1], None, 0.0))
-    cases.append(((3, 64, 8, 4, 16), torch.float32, [80, 0, 64], 8, 0.0))
-    cases.append(((2, 900, 4, 2, 128), torch.bfloat16, [1000, 905], 16, 0.0))
+    cases.append(((3, 50, 8, 4, 16), f32, [53, 50, 1], None, 0.0))
+    cases.append(((3, 64, 8, 4, 16), f32, [80, 0, 64], 8, 0.0))
+    cases.append(((2, 900, 4, 2, 128), bf16, [1000, 905], 16, 0.0))
+    # lengths 1, exactly S and S + 5; chunk boundaries (chunks of 128 keys)
+    cases.append(((3, 700, 4, 2, 128), bf16, [1, 700, 705], None, 0.0))
+    cases.append(((3, 300, 8, 2, 64), f32, [1, 300, 305], None, 0.0))
+    cases.append(((3, 700, 4, 2, 128), bf16, [127, 128, 129], None, 0.0))
+    cases.append(((3, 700, 4, 2, 128), bf16, [255, 256, 641], None, 0.0))
+    cases.append(((3, 700, 4, 2, 64), f32, [128, 384, 641], None, 0.0))
+    cases.append(((3, 700, 4, 2, 128), bf16, [300, 640, 700], 200, 0.0))
+    cases.append(((3, 700, 10, 2, 128), bf16, [129, 512, 700], 128, 20.0))
+    cases.append(((3, 700, 24, 2, 128), bf16, [1, 385, 705], 256, 0.0))
     worst: dict = {}
     for (b, s, h, kv, hd), dtype, lens, window, cap in cases:
         q = _randn(gen, (b, 1, h, hd), dtype)
@@ -244,27 +293,29 @@ def _bound(n_bytes: float, flops: float, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def full_width_flash_attention(gen, cfg, prefill_len: int) -> dict:
-    """K1 at the serving path's prefill shape."""
+def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
+    """K1 in bf16, causal, against its plain version, timed beside the
+    plain version and one library call."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
                                                      flash_attention_plain)
-    a = cfg.attn
-    b, s, h, kv, hd = 1, prefill_len, a.n_heads, a.n_kv_heads, a.head_dim
     dtype = torch.bfloat16
     q = _randn(gen, (b, s, h, hd), dtype)
     k = _randn(gen, (b, s, kv, hd), dtype)
     v = _randn(gen, (b, s, kv, hd), dtype)
-    kw = dict(group=h // kv, causal=True, window=-1, cap=a.softcap)
+    kw = dict(group=h // kv, causal=True, window=-1, cap=cap)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     worst: dict = {}
-    _check("flash_attention", got, want, dtype, "full width", worst)
+    _check("flash_attention", got, want, dtype, ("timed", b, s, h, kv, hd),
+           worst)
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,S,hd] views
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                          enable_gqa=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
+    del got, want, lib
 
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw))
@@ -275,41 +326,47 @@ def full_width_flash_attention(gen, cfg, prefill_len: int) -> dict:
     # causal: row i sees i + 1 keys; two products of 2*hd flops per pair
     flops = 4.0 * hd * b * h * s * (s + 1) / 2
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    plan = attention_plan(b, s, h, hd, dtype)
     return {"shape": {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
                       "dtype": "bfloat16"},
+            "plan": {"bq": plan.bq, "bk": plan.bk, "warps": plan.warps,
+                     "kv_warps": plan.kv_warps, "blocks": plan.blocks,
+                     "smem_bytes": plan.smem_bytes},
             "max_abs_err": worst["bfloat16"], "limit": TOL[dtype],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": n_bytes, "flops": flops}
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": n_bytes, "flops": flops}
 
 
-def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
-                            prefill_len: int, n_layers: int) -> dict:
-    """K2 at the serving path's decode shape, mixed lengths.  Timed over the
-    layers of a whole stacked cache in turn, as the decode step walks them,
-    so that no launch finds its cache rows in L2 from the launch before."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import (flash_decode,
-                                                  flash_decode_plain)
+def full_width_flash_attention(gen, cfg, prefill_len: int) -> dict:
+    """K1 at the serving path's prefill shape."""
     a = cfg.attn
-    b, s, h, kv, hd = batch, max_seq, a.n_heads, a.n_kv_heads, a.head_dim
+    return _time_flash_attention(gen, 1, prefill_len, a.n_heads, a.n_kv_heads,
+                                 a.head_dim, a.softcap)
+
+
+def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
+    """K2 in bf16 at lengths `lens`, against its plain version on the first
+    and last of `n_layers` stacked caches, timed over the layers in turn, as
+    the decode step walks them, so that no launch finds its cache rows in L2
+    from the launch before."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (decode_layout, flash_decode,
+                                                  flash_decode_plain,
+                                                  head_blocks, split_plan)
+    from repro_torch.kernels import build
     dtype = torch.bfloat16
     q = _randn(gen, (b, 1, h, hd), dtype)
     kc = _randn(gen, (n_layers, b, s, kv, hd), dtype)
     vc = _randn(gen, (n_layers, b, s, kv, hd), dtype)
-    # lengths as a run has them: prefill_len plus a few dozen decoded tokens,
-    # one row near the cache's end and one idle row that counted past it
-    lens = [prefill_len + 1 + 9 * i for i in range(b)]
-    lens[-1] = max_seq + 5
-    if b > 2:
-        lens[-2] = max_seq - 1
     lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
-    kw = dict(group=h // kv, window=-1, cap=a.softcap)
+    kw = dict(group=h // kv, window=-1, cap=cap)
     worst: dict = {}
     for layer in (0, n_layers - 1):
         _check("flash_decode", flash_decode(q, kc[layer], vc[layer], lengths, **kw),
                flash_decode_plain(q, kc[layer], vc[layer], lengths, **kw),
-               dtype, "full width", worst)
+               dtype, ("timed", b, s, h, kv, hd), worst)
 
     seen = torch.tensor([min(x, s) for x in lens], device="cuda")
     mask = (torch.arange(s, device="cuda")[None] < seen[:, None])[:, None, None]
@@ -322,6 +379,7 @@ def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
     lib = lib_call(0).transpose(1, 2)
     want = flash_decode_plain(q, kc[0], vc[0], lengths, **kw)
     lib_err = (lib.float() - want.float()).abs().max().item()
+    del lib, want
 
     state = {"i": 0}
 
@@ -330,8 +388,8 @@ def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
             state["i"] = (state["i"] + 1) % n_layers
             return fn(state["i"])
         return call
-    ms = time_ms(over_layers(
-        lambda l: flash_decode(q, kc[l], vc[l], lengths, **kw)), inner=n_layers)
+    kernel = over_layers(lambda l: flash_decode(q, kc[l], vc[l], lengths, **kw))
+    ms = time_ms(kernel, inner=n_layers)
     plain_ms = time_ms(over_layers(
         lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, **kw)),
         inner=n_layers)
@@ -341,12 +399,50 @@ def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
     n_bytes = elt * (2 * q.numel() + 2 * keys * kv * hd) + 4 * b
     flops = 4.0 * hd * h * keys
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    n_splits, chunk = split_plan(b, kv, s, build.load().rt_flash_decode_tile())
     return {"shape": {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
-                      "dtype": "bfloat16", "lengths": lens},
+                      "dtype": "bfloat16", "lengths": lens,
+                      "stacked_layers": n_layers},
+            "plan": {"n_splits": n_splits, "chunk": chunk,
+                     "heads_per_block": head_blocks(h // kv)[1],
+                     **decode_layout(hd, dtype)},
             "max_abs_err": worst["bfloat16"], "limit": TOL[dtype],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": n_bytes, "flops": flops}
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": n_bytes, "flops": flops}
+
+
+def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
+                            prefill_len: int, n_layers: int) -> dict:
+    """K2 at the serving path's decode shape: lengths as a run has them,
+    prefill_len plus a few dozen decoded tokens, one row near the cache's end
+    and one idle row that counted past it."""
+    a = cfg.attn
+    lens = [prefill_len + 1 + 9 * i for i in range(batch)]
+    lens[-1] = max_seq + 5
+    if batch > 2:
+        lens[-2] = max_seq - 1
+    return _time_flash_decode(gen, batch, max_seq, a.n_heads, a.n_kv_heads,
+                              a.head_dim, a.softcap, lens, n_layers)
+
+
+def long_shapes(gen, cfg) -> dict:
+    """One long shape per attention kernel at `cfg`'s widths, reported and
+    not gated on time: K1 at B 1, S 4096; K2 at B 8, S 8192, every row at
+    length 8192, over 4 stacked layers (268 MB of cache a layer at qwen3's
+    widths, so no launch finds its rows in L2)."""
+    a = cfg.attn
+    out = {"flash_attention": dict(arch=cfg.name, **_time_flash_attention(
+        gen, 1, 4096, a.n_heads, a.n_kv_heads, a.head_dim, a.softcap))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_decode"] = dict(arch=cfg.name, **_time_flash_decode(
+        gen, 8, 8192, a.n_heads, a.n_kv_heads, a.head_dim, a.softcap,
+        [8192] * 8, 4))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _ssd_inputs(gen, b, s, nh, hp, n, dtype, rates="fast"):
@@ -498,13 +594,14 @@ def full_width_ssd(gen, cfg, prefill_len: int) -> dict:
             "limit": limit, "slow_rates": slow,
             "ms": ms, "plain_ms": plain_ms,
             "library_ms": None,   # no single PyTorch call computes it
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-            "flops": flops}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": n_bytes, "flops": flops}
 
 
 def phase_kernels(paths, batch, max_seq) -> dict:
     """Every kernel over its sweep, then at the full-width shapes that the
-    serving paths give it (timed at the first path's shape)."""
+    serving paths give it, each timed, and the attention kernels at one long
+    shape each (at the first dense path's widths)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {name: {"full_width": []} for name in KERNELS}
     out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
@@ -523,11 +620,79 @@ def phase_kernels(paths, batch, max_seq) -> dict:
         if cfg.family in ("ssm", "hybrid"):
             out["ssd_intra"]["full_width"].append(
                 full_width_ssd(gen, cfg, prefill_len))
+    dense = [cfg for cfg, _ in paths if cfg.family == "dense"]
+    if dense:
+        for name, res in long_shapes(gen, dense[0]).items():
+            out[name]["long"] = res
     emit("kernels", tolerance={"float32": TOL[torch.float32],
                                "bfloat16": TOL[torch.bfloat16],
                                "ssd_intra_relative":
                                    "2e-4 + eps_f32 * max|cum|"}, **out)
     return out
+
+
+def phase_plans(paths, batch, max_seq) -> None:
+    """Optional (`--phases ...,plans`): the measurements behind the launch
+    plans.  At each attention path's shapes, K1 with every bf16 tile choice
+    (8, 4 and 2 row warps) and K2 with 1 to 16 splits of the kv range, each
+    held against the plain version and timed as in the `kernels` phase (K2
+    over the stacked layers); the plans' own choices are named."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dtype = torch.bfloat16
+    tile = build.load().rt_flash_decode_tile()
+    for cfg, prefill_len in paths:
+        if cfg.family not in ("dense", "hybrid"):
+            continue
+        a = cfg.attn
+        h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
+        q, k, v = (_randn(gen, (1, prefill_len, n, hd), dtype)
+                   for n in (h, kv, kv))
+        want = fa.flash_attention_plain(q, k, v, group=h // kv, cap=a.softcap)
+        k1 = {}
+        for rows in (8, 4, 2):
+            plan = fa.bf16_plan(1, prefill_len, h, hd, rows)
+            call = lambda: fa.launch_with_plan(  # noqa: E731
+                q, k, v, plan, causal=True, window=-1, cap=a.softcap)
+            _check("flash_attention", call(), want, dtype, ("plans", rows), {})
+            k1[rows] = time_ms(call)
+        del q, k, v, want
+        n_layers = cfg.n_layers if cfg.family == "dense" else \
+            cfg.n_layers // cfg.attn_every
+        lens = [prefill_len + 1 + 9 * i for i in range(batch)]
+        lens[-1], lens[-2] = max_seq + 5, max_seq - 1
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        q = _randn(gen, (batch, 1, h, hd), dtype)
+        kc, vc = (_randn(gen, (n_layers, batch, max_seq, kv, hd), dtype)
+                  for _ in range(2))
+        want = fd.flash_decode_plain(q, kc[0], vc[0], lengths, group=h // kv,
+                                     cap=a.softcap)
+        k2 = {}
+        for n in (1, 2, 4, 8, 16):
+            chunk = -(-max_seq // (n * tile)) * tile
+            state = {"i": 0}
+
+            def call(layer=None):
+                state["i"] = (state["i"] + 1) % n_layers
+                i = state["i"] if layer is None else layer
+                return fd.launch_with_split(
+                    q, kc[i], vc[i], lengths, group=h // kv, window=-1,
+                    cap=a.softcap, n_splits=-(-max_seq // chunk), chunk=chunk)
+            _check("flash_decode", call(0), want, dtype, ("plans", n), {})
+            k2[n] = time_ms(call, inner=n_layers)
+        del q, kc, vc
+        emit("plans", arch=cfg.name,
+             flash_attention={"shape": [1, prefill_len, h, kv, hd],
+                              "chosen_rows": fa.attention_plan(
+                                  1, prefill_len, h, hd, dtype).bq // 16,
+                              "ms_by_rows": k1},
+             flash_decode={"shape": [batch, max_seq, h, kv, hd],
+                           "lengths": lens, "stacked_layers": n_layers,
+                           "chosen_splits": fd.split_plan(
+                               batch, kv, max_seq, tile)[0],
+                           "ms_by_splits": k2})
 
 
 def _wrappers() -> dict:
@@ -750,6 +915,10 @@ def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
         rows.sort(key=lambda r: -r[1])
         out[name] = {
             "host_ms": host_ms, "device_busy_ms": busy_ms,
+            # the port's own kernels (K1, K2, K3) by name
+            "port_kernels": {k[:60]: {"ms": ms, "calls": n}
+                             for k, ms, n in rows
+                             if "flash_" in k or "ssd_" in k},
             "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:70], "ms": ms, "calls": n}
@@ -827,6 +996,8 @@ def main() -> int:
         phase_build(args.ptxas)
     checks = phase_kernels(paths, batch, max_seq) \
         if "kernels" in phases else None
+    if "plans" in phases:
+        phase_plans(paths, batch, max_seq)
     if "serve" not in phases:
         return 0
     per_path = {}
@@ -845,16 +1016,23 @@ def main() -> int:
         return 0
 
     kernels = []
+    timed = ("arch", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "bound_share", "max_abs_err")
     for name in KERNELS:
         fw = checks[name]["full_width"][0]
         launches = {arch: n[name] for arch, n in per_path.items()}
+        long = checks[name].get("long")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(launches.values()),
             "launches_per_path": launches, "shape_of": fw["arch"],
             "max_abs_err": fw["max_abs_err"], "ms": fw["ms"],
             "plain_ms": fw["plain_ms"], "bound_ms": fw["bound_ms"],
-            "bound_by": fw["bound_by"], "library_ms": fw["library_ms"]})
+            "bound_by": fw["bound_by"], "library_ms": fw["library_ms"],
+            "sources": SOURCES_ALL[name],
+            "full_width": [{key: r[key] for key in timed}
+                           for r in checks[name]["full_width"]],
+            "long": None if long is None else {key: long[key] for key in timed}})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

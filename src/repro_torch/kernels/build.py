@@ -30,9 +30,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream is c_void_p)
 SIGNATURES = {
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _F, _F, _P],
-    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _F, _F, _P],
+                           _I, _I, _I, _F, _F, _P],
+    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "rt_flash_decode_tile": [],
     "rt_ssd_intra": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _P],

@@ -1,5 +1,6 @@
 // Shared pieces of the attention kernels: element conversion, 16-byte tile
-// loads from device memory into f32 shared memory, and the mask constants.
+// loads from device memory into f32 shared memory, the mask constants, a
+// one-instruction exp2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +81,14 @@ __device__ __forceinline__ void load_tile(float* __restrict__ smem,
           make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
     }
   }
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds a fix-up for results below 2^-126, which
+// only round a softmax weight from a denormal to 0).  2^-inf = 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float apply_cap(float s, float cap) {

@@ -1,10 +1,12 @@
-// Flash attention forward for Hopper (sm_90a), written by hand.
+// Flash attention forward for Hopper (sm_90a), written by hand: the entry
+// point, and the kernel for f32 inputs.
 //
 // Replaces the Pallas kernel `_flash_kernel` / `flash_attention` of
 // src/repro/kernels/flash_attention.py.  Computes, for q [B,S,H,D] and
 // k/v [B,S,KV,D] with H = KV * group,
 //     out = softmax(mask(softcap(q k^T / sqrt(D)))) v
-// by an online softmax over kv tiles.
+// by an online softmax over kv tiles.  bf16 inputs go to the tensor-core
+// kernel of flash_attention_tc.cu; f32 inputs to the kernel below.
 //
 // What differs from the kernel it replaces: the sequential kv axis of the
 // grid becomes a loop inside the block, one block per (batch, q head,
@@ -14,10 +16,12 @@
 // nothing is padded in device memory.  GQA is by index (head h reads kv head
 // h / group).
 //
-// Arithmetic: inputs f32 or bf16, both products and the softmax in IEEE f32
-// on the CUDA cores (no TF32, no tensor cores yet).  That makes this first
-// version operation-bound far below the card's tensor-core peak; moving the
-// two products to `wgmma` on bf16 tiles is the next step for this kernel.
+// The f32 kernel does both products and the softmax in IEEE f32 on the CUDA
+// cores (no TF32: the f32 whole-path check of the serving paths holds the
+// kernels to 1e-4 of the largest logit, which TF32's 10-bit mantissa would
+// break).  It is bound by the CUDA cores' f32 rate and stages K, V and P
+// through shared memory behind three block barriers a tile; f32 is the
+// checking path, not the serving one, so it stays simple.
 #include "common.cuh"
 
 namespace rt {
@@ -259,19 +263,33 @@ int dispatch_flash(int D, const void* q, const void* k, const void* v,
 
 }  // namespace rt
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success), -1 for a head_dim or dtype the kernel does not take.
-// Launches on `stream`, does not synchronise, allocates nothing.
+namespace rt {
+int flash_attention_bf16(int D, int bq, int wk, int bk, const void* q,
+                         const void* k, const void* v, void* out, int B, int S,
+                         int H, int KV, int causal, int window, float cap,
+                         float scale, cudaStream_t stream);
+}  // namespace rt
+
+// dtype: 0 = float32, 1 = bfloat16.  bq x bk are the q rows and keys of a
+// tile and `kv_warps` the warps that share a q tile's kv range, as the
+// wrapper's plan chose them (`attention_plan` in kernels/flash_attention.py).
+// Returns cudaGetLastError() after the launch (0 on success), -1 for a
+// head_dim, dtype or tile the kernels do not take.  Launches on `stream`,
+// does not synchronise, allocates nothing.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int B, int S, int H, int KV,
-                                  int D, int dtype, int causal, int window,
-                                  float cap, float scale, void* stream) {
+                                  int D, int dtype, int bq, int kv_warps,
+                                  int bk, int causal, int window, float cap,
+                                  float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
+    const int want = D == 256 ? 32 : 64;
+    if (bq != want || bk != want || kv_warps != 1) return -1;
     return rt::dispatch_flash<float>(D, q, k, v, out, B, S, H, KV, causal,
                                      window, cap, scale, st);
+  }
   if (dtype == 1)
-    return rt::dispatch_flash<__nv_bfloat16>(D, q, k, v, out, B, S, H, KV,
-                                             causal, window, cap, scale, st);
+    return rt::flash_attention_bf16(D, bq, kv_warps, bk, q, k, v, out, B, S,
+                                    H, KV, causal, window, cap, scale, st);
   return -1;
 }

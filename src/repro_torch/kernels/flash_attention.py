@@ -1,25 +1,34 @@
 # Counterpart of src/repro/kernels/flash_attention.py (`flash_attention`,
 # body `_flash_kernel`).  Forward only, as there; the backward waits for the
 # training slice.
-"""Flash attention forward (GQA, causal, sliding window, soft-cap): a CUDA
-kernel written by hand for Hopper, its plain PyTorch version, and the wrapper
-that chooses between them by where the tensor lies.
+"""Flash attention forward (GQA, causal, sliding window, soft-cap): CUDA
+kernels written by hand for Hopper, their plain PyTorch version, the launch
+plan, and the wrapper that chooses between kernel and plain version by where
+the tensor lies.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``_flash_kernel``.  On this card the function is bound by operations: at the
-serving path's prefill shape the three inputs and the output are a few
-megabytes, the two products a few hundred MFLOP.  The design keeps the scores
-and the weights out of device memory (online softmax over kv tiles inside one
-block per (batch, q head, q tile), running max / sum / accumulator in
-registers), skips the kv tiles that the causal frontier and the window mask
-out, and masks the ragged edge in the kernel instead of padding the inputs.
-This first version does both products in IEEE f32 on the CUDA cores; moving
-them to the tensor cores is what is left between it and the bound.
+The kernels replace the Pallas TPU kernel ``_flash_kernel``.  bf16 inputs go
+to ``csrc/flash_attention_tc.cu``: FlashAttention-2's layout on the tensor
+cores (``mma.sync`` m16n8k16, bf16 in, f32 accumulators), Q in registers, K/V
+through a three-stage ``cp.async`` ring with one block barrier a round, P kept
+in registers as the A operand of the second product.  At the serving paths'
+prefills (S 256-512) the work is a fraction of a GFLOP, so what bounds the
+kernel is latency: the chain of kv tiles that one warp walks for its 16 q
+rows.  A block of 8 warps therefore splits its q tile's kv range over
+``kv_warps`` warps and merges their results once; ``attention_plan`` trades
+row warps for kv warps so that the grid still fills the 132 SMs (zamba2's
+prefill and long ones keep 128 q rows a block, one kv warp, and so read each
+K/V tile from L2 once per 128 rows).  f32 inputs go to ``csrc/flash_attention.cu``, both
+products in IEEE f32 on the CUDA cores (no TF32: the f32 checks of the
+serving paths hold the kernels to 1e-4 of the largest logit).  Both keep the
+scores out of device memory, skip the kv tiles that the causal frontier and
+the window mask out, and mask the ragged edge in the kernel instead of
+padding the inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -30,6 +39,89 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 Window = Union[int, torch.Tensor, None]
+
+N_SMS = 132                  # streaming multiprocessors of one H100 SXM
+SMEM_LIMIT = 232_448         # shared memory one block may opt in to (227 KB)
+# K1 takes the largest q tile whose grid leaves at most a tenth of the SMs
+# without a block (zamba2-1.2b's prefill: 128 blocks of 128 rows measured
+# faster than 256 of 64, PERF.md, PR 13)
+TARGET_BLOCKS = N_SMS - N_SMS // 10
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How the kernel tiles one call: one block of ``warps`` warps per (q
+    tile of ``bq`` rows, q head, row); each kv tile holds ``bk`` keys, and
+    ``kv_warps`` warps share the q tile's kv tiles, one tile each a round."""
+    bq: int
+    bk: int
+    warps: int
+    kv_warps: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+    target_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def q_tiles(self, s: int) -> List[Tuple[int, int]]:
+        """[q0, q1) of each block along S."""
+        return [(i * self.bq, min(s, (i + 1) * self.bq))
+                for i in range(self.grid[0])]
+
+    def key_tiles(self, s: int, q0: int, causal: bool,
+                  window: int) -> List[Tuple[int, int]]:
+        """The kv tiles [k0, k1) the block of q tile ``q0`` walks, as the
+        kernels do: from the window's lower edge to the causal frontier (all
+        of [0, S) where ``window == 0`` masks every key).  Tile i goes to kv
+        warp i % kv_warps."""
+        lo, hi = 0, s
+        if window != 0:
+            if causal:
+                hi = min(s, q0 + self.bq)
+            if window > 0:
+                lo = max(0, q0 - window + 1)
+        return [(t * self.bk, min(s, (t + 1) * self.bk))
+                for t in range(lo // self.bk, -(-hi // self.bk))]
+
+
+def attention_plan(b: int, s: int, h: int, hd: int,
+                   dtype: torch.dtype) -> AttentionPlan:
+    """The tiles of one launch.  f32: 64 x 64 tiles of 256 threads (32 x 32 at
+    head_dim 256), shared memory for Q, K, V and P as f32.  bf16: blocks of 8
+    warps, the largest number of row warps (8, 4, 2: q tiles of 128, 64, 32
+    rows) whose grid has TARGET_BLOCKS blocks, or 2 where none has; the rest
+    of the 8 are kv warps.  kv tiles of 64 keys with one kv warp or at
+    head_dim 64 and below, else 32 (half that at head_dim 256).  Shared
+    memory: Q and three stages of a round (a K and a V tile for each kv
+    warp), bf16, rows padded by 8 elements; after the loop the same memory
+    holds every warp's f32 O, m and l for the merge."""
+    if dtype != torch.float32:
+        for rows in (8, 4, 2):
+            if -(-s // (16 * rows)) * h * b >= TARGET_BLOCKS:
+                break
+        return bf16_plan(b, s, h, hd, rows)
+    bq = bk = 32 if hd == 256 else 64
+    smem = 4 * (bq * (hd + 4) + bk * (hd + 4) + bk * hd + bq * (bk + 4))
+    return AttentionPlan(bq=bq, bk=bk, warps=8, kv_warps=1,
+                         grid=(-(-s // bq), h, b), smem_bytes=smem,
+                         target_blocks=TARGET_BLOCKS)
+
+
+def bf16_plan(b: int, s: int, h: int, hd: int, rows: int) -> AttentionPlan:
+    """The bf16 tiles with ``rows`` row warps (8, 4 or 2) of the block's 8;
+    ``attention_plan`` picks ``rows``, ``chip_smoke.py --phases plans`` times
+    every choice."""
+    warps = 8
+    kv_warps = warps // rows
+    bq = 16 * rows
+    bk = (64 if kv_warps == 1 or hd <= 64 else 32) // (2 if hd == 256 else 1)
+    smem = max(2 * (hd + 8) * (bq + 3 * kv_warps * 2 * bk),
+               4 * warps * 16 * (hd + 6))
+    return AttentionPlan(bq=bq, bk=bk, warps=warps, kv_warps=kv_warps,
+                         grid=(-(-s // bq), h, b), smem_bytes=smem,
+                         target_blocks=TARGET_BLOCKS)
 
 
 def window_ok(dist: torch.Tensor, window: Window) -> Optional[torch.Tensor]:
@@ -135,15 +227,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"group {group}")
-    win = window_arg("flash_attention", window)
+    return launch_with_plan(q, k, v, attention_plan(b, s, h, hd, q.dtype),
+                            causal=causal,
+                            window=window_arg("flash_attention", window),
+                            cap=cap)
+
+
+def launch_with_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     plan: AttentionPlan, *, causal: bool, window: int,
+                     cap: float) -> torch.Tensor:
+    """Launch the kernel with the tiles of ``plan`` on inputs that
+    ``flash_attention`` has checked."""
+    b, s, h, hd = q.shape
     lib = build.load()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, kv, hd, DTYPE_CODES[q.dtype], int(bool(causal)), win,
-            float(cap), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream().cuda_stream)
+            b, s, h, k.shape[2], hd, DTYPE_CODES[q.dtype], plan.bq,
+            plan.kv_warps, plan.bk, int(bool(causal)), window, float(cap),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -3,16 +3,23 @@
 # is not ported yet.
 """Flash decode: one query token per row against a KV cache with per-row
 lengths.  A CUDA kernel written by hand for Hopper, its plain PyTorch
-version, and the wrapper that chooses between them by where the tensor lies.
+version, the split plan, and the wrapper that chooses between kernel and
+plain version by where the tensor lies.
 
 The kernel (``csrc/flash_decode.cu``) replaces the Pallas TPU kernel
 ``_decode_kernel``.  On this card the function is bound by bytes: each cache
-entry in range is read once and used for two flops per byte.  The design
-reads each K/V tile once for all ``group`` q heads that share the kv head,
-stops at ``min(lengths[b], S)`` and starts at the window's lower edge, loads
-16 bytes a thread along ``hd``, and splits the kv range over several blocks
-(partials combined by a second small kernel) so that a small batch still
-fills the card.
+entry in range is read once and used for two flops per byte, so the CUDA
+cores suffice and what matters is keeping loads in flight.  A block of 4
+warps reads each K/V row once for up to 8 q heads of its kv head, walks
+only from the window's lower edge to ``min(lengths[b], S)``, and each warp
+keeps 4 steps of K and V in flight in its own ``cp.async`` ring of 8, read
+back by the lanes that copied them, so the key loop has no barrier; scores
+are partial dot products plus shuffles across the lanes of a key, 4 steps at
+a time.  The kv range
+is split over several blocks so that a small batch still fills the card; the
+last block of a (row, head block) to finish merges the splits, found by an
+atomic counter that it resets to 0 (``split_counters``, allocated once per
+device).
 """
 from __future__ import annotations
 
@@ -25,8 +32,55 @@ from repro_torch.kernels.flash_attention import (
     DTYPE_CODES, NEG_INF, Window, check_inputs, gqa_out, gqa_scores,
     window_arg, window_ok)
 
-# blocks to aim for when the kv range is split (a few per multiprocessor)
-TARGET_BLOCKS = 528
+# Blocks to aim for when the kv range is split: about four per SM.  Each
+# (row, kv head) takes the largest power of two of splits that keeps the grid
+# within this: 8 at qwen3-1.7b's decode, the fastest there, and 2 at
+# zamba2-1.2b's, where 1 is a little faster (`chip_smoke.py --phases plans`,
+# PERF.md, PR 13).
+TARGET_BLOCKS = 512
+# ... and no split shorter than this, so that a block's fixed cost (q in
+# registers, the merge of its warps, a partial written and read back) is
+# spread over at least 32 keys a warp.
+MIN_CHUNK = 128
+# The kernel's layout (csrc/flash_decode.cu): warps a block, warp steps in
+# flight per warp, q heads a block keeps in registers.
+WARPS, STAGES, MAX_HEADS = 4, 8, 8
+
+
+def head_blocks(group: int):
+    """(n_blocks, heads_per_block): a group of more than MAX_HEADS q heads is
+    cut into even head blocks, each reading the kv head's cache once."""
+    n = -(-group // MAX_HEADS)
+    return n, -(-group // n)
+
+
+_counters: dict = {}      # device -> int32 split counters, all 0 between launches
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, kept from launch to launch:
+    the kernel's last split of each (row, head block) resets its counter, so
+    they are 0 again after every launch.  Grown (never shrunk) on demand.
+    Launches on one stream, as the port makes them, never share them at
+    once."""
+    t = _counters.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = t
+    return t
+
+
+def decode_layout(hd: int, dtype: torch.dtype) -> dict:
+    """How the kernel lays a key row over a warp, and the shared memory a
+    block asks for: its warps' rings of K and V, reused after the key loop
+    for the warps' (acc, m, l) of up to MAX_HEADS heads."""
+    segs = hd * (4 if dtype == torch.float32 else 2) // 16   # 16-byte pieces
+    lanes = min(32, segs)
+    ring = WARPS * STAGES * 2 * (segs // lanes) * 32 * 16
+    merge = WARPS * MAX_HEADS * (hd + 2) * 4
+    return {"lanes_per_key": lanes, "keys_per_step": 32 // lanes,
+            "segments_per_lane": segs // lanes,
+            "smem_bytes": max(ring, merge)}
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -52,12 +106,16 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def split_plan(b: int, kv: int, s: int, tile: int):
-    """(n_splits, chunk): how the kv range [0, S) is cut over blocks.  Sized
-    from the cache's capacity, not from the lengths, which stay on the
-    device; a block whose chunk lies beyond its row's length returns at once."""
-    n_tiles = -(-s // tile)
-    want = max(1, min(n_tiles, TARGET_BLOCKS // max(b * kv, 1)))
-    chunk = -(-n_tiles // want) * tile
+    """(n_splits, chunk): how the kv range [0, S) is cut over blocks, chunk a
+    multiple of ``tile``.  Sized from the cache's capacity, not from the
+    lengths, which stay on the device; a block whose chunk lies beyond its
+    row's length skips the key loop."""
+    pairs = max(b * kv, 1)
+    want = 1
+    while 2 * want * pairs <= TARGET_BLOCKS:
+        want *= 2
+    chunk = max(MIN_CHUNK, -(-s // want))
+    chunk = min(-(-chunk // tile), -(-s // tile)) * tile
     return -(-s // chunk), chunk
 
 
@@ -82,8 +140,24 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("flash_decode: lengths must be a contiguous int32 "
                          f"[{b}] tensor on {q.device}")
     win = window_arg("flash_decode", window)
+    n_splits, chunk = split_plan(b, kv, s, build.load().rt_flash_decode_tile())
+    return launch_with_split(q, k_cache, v_cache, lengths, group=group,
+                             window=win, cap=cap, n_splits=n_splits,
+                             chunk=chunk)
+
+
+def launch_with_split(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                      group: int, window: int, cap: float, n_splits: int,
+                      chunk: int) -> torch.Tensor:
+    """Launch the kernel with the kv range cut into ``n_splits`` chunks of
+    ``chunk`` keys, on inputs that ``flash_decode`` has checked;
+    ``split_plan`` picks the cut, ``chip_smoke.py --phases plans`` times
+    others."""
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    n_hb, hpb = head_blocks(group)
     lib = build.load()
-    n_splits, chunk = split_plan(b, kv, s, lib.rt_flash_decode_tile())
     out = torch.empty_like(q)
     if n_splits > 1:
         part = torch.empty((b * h * n_splits, hd + 2), dtype=torch.float32,
@@ -92,14 +166,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         part_m = part.data_ptr()
         part_l = part_m + 4 * n
         part_acc = part_l + 4 * n
+        counters = split_counters(q.device, b * kv * n_hb).data_ptr()
     else:
-        part_m = part_l = part_acc = None
+        part_m = part_l = part_acc = counters = None
     with torch.cuda.device(q.device):
         err = lib.rt_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part_m, part_l, part_acc,
-            b, s, h, kv, hd, DTYPE_CODES[q.dtype], n_splits, chunk, win,
-            float(cap), 1.0 / math.sqrt(hd),
+            counters, b, s, h, kv, hd, DTYPE_CODES[q.dtype], hpb, n_splits,
+            chunk, window, float(cap), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_decode")
     flash_decode.launches += 1

@@ -45,6 +45,7 @@ def test_sources_were_found():
     assert {"engine.py", "flash_attention.py", "flash_decode.py", "build.py",
             "chip_smoke.py", "convert.py", "ssd.py", "ssm.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
+    assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
     assert (PKG / "kernels" / "csrc" / "ssd.cu").exists()
 
