@@ -29,7 +29,7 @@ non-zero; with no CUDA device it exits non-zero at once.
 while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
-times K1 and K2 with every tile choice their launch plans choose from.
+times K1, K2 and K3 with every tile choice their launch plans choose from.
 """
 from __future__ import annotations
 
@@ -93,12 +93,15 @@ REPLACES = {
 SOURCES = {       # the kernel that the bf16 timings measure
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
-    "ssd_intra": "src/repro_torch/kernels/csrc/ssd.cu",
+    "ssd_intra": "src/repro_torch/kernels/csrc/ssd_tc.cu",
 }
 SOURCES_ALL = {**{k: [v] for k, v in SOURCES.items()},
                "flash_attention": [   # entry point and the f32 kernel, bf16
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   SOURCES["flash_attention"]]}
+                   SOURCES["flash_attention"]],
+               "ssd_intra": [         # the f32 kernel, bf16
+                   "src/repro_torch/kernels/csrc/ssd.cu",
+                   SOURCES["ssd_intra"]]}
 
 
 def emit(phase: str, **kw) -> None:
@@ -518,9 +521,28 @@ def _check_ssd(got, want, case, worst, far=None) -> None:
                                  f"{err} > {limit} x {scale}")
         worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
         worst["abs"] = max(worst.get("abs", 0.0), err)
+        worst["share_of_limit"] = max(worst.get("share_of_limit", 0.0),
+                                      err / max(limit * scale, 1e-30))
+
+
+def _offset(t, elems: int):
+    """A contiguous copy of `t` that starts `elems` elements past an
+    allocation's start (so off its 16-byte alignment)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def sweep_ssd(gen) -> dict:
+    """K3 against its plain version.  The shapes of tests/test_kernels.py,
+    S below the chunk, a ragged last chunk, N 4 and 128, in both dtypes, on
+    fast rates and (chunk 256) slow ones; then the bf16 kernel with every
+    plan it is built for (each head group of each head_dim, t tiles alone
+    and paired; 5 heads, so the last group is ragged; N 12, which takes
+    8-byte copies, and 128), and bf16 inputs off their 16-byte alignment,
+    which take the f32 kernel."""
+    from repro_torch.kernels import ssd as K
     from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
     cases = []
     long = [(1, 512, 4, 64, 128, 256),             # S a multiple of q, N 128
@@ -531,17 +553,36 @@ def sweep_ssd(gen) -> dict:
                   (2, 40, 3, 16, 8, 64),           # S < chunk
                   *long, (3, 7, 2, 16, 4, 16)]:
         for dtype in (torch.float32, torch.bfloat16):
-            cases.append((shape, dtype, "fast"))
+            cases.append((shape, dtype, "fast", None))
     for shape in long:                             # every tile pair shows
         for dtype in (torch.float32, torch.bfloat16):
-            cases.append((shape, dtype, "slow"))
+            cases.append((shape, dtype, "slow", None))
+    for hp, groups in K.TC_HEADS.items():          # every bf16 plan
+        for g in groups:
+            for pair in (False, True):
+                n = 128 if pair else 12
+                cases.append(((2, 300, 5, hp, n, 256), torch.bfloat16,
+                              "slow" if pair else "fast", (g, pair)))
+    for shape in [(2, 300, 5, 64, 64, 256), (1, 7, 2, 16, 4, 16)]:
+        cases.append((shape, torch.bfloat16, "fast", "offset"))
     worst: dict = {}
-    for (b, s, nh, hp, n, chunk), dtype, rates in cases:
+    for (b, s, nh, hp, n, chunk), dtype, rates, how in cases:
         args = _ssd_inputs(gen, b, s, nh, hp, n, dtype, rates)
+        if how == "offset":
+            args = (_offset(args[0], 1), args[1], args[2],
+                    _offset(args[3], 1), _offset(args[4], 3))
+            assert K._tc_vec(args[0], args[3], args[4]) == 0
         want = ssd_intra_plain(*args, chunk)
         far = _far_shares(args, chunk, want) if rates == "slow" else None
-        _check_ssd(ssd_intra(*args, chunk), want,
-                   ((b, s, nh, hp, n, chunk), str(dtype), rates), worst, far)
+        if isinstance(how, tuple):
+            plan = K.ssd_plan(b, s, nh, hp, n, chunk, dtype,
+                              heads_per_block=how[0], pair=how[1])
+            got = K.launch_with_plan(*args, chunk, plan)
+        else:
+            got = ssd_intra(*args, chunk)
+        _check_ssd(got, want,
+                   ((b, s, nh, hp, n, chunk), str(dtype), rates, how), worst,
+                   far)
     return {"cases": len(cases), "max_rel_err": worst}
 
 
@@ -634,9 +675,11 @@ def phase_kernels(paths, batch, max_seq) -> dict:
 def phase_plans(paths, batch, max_seq) -> None:
     """Optional (`--phases ...,plans`): the measurements behind the launch
     plans.  At each attention path's shapes, K1 with every bf16 tile choice
-    (8, 4 and 2 row warps) and K2 with 1 to 16 splits of the kv range, each
-    held against the plain version and timed as in the `kernels` phase (K2
-    over the stacked layers); the plans' own choices are named."""
+    (8, 4 and 2 row warps) and K2 with 1 to 16 splits of the kv range; at
+    each SSM path's prefill shape, K3 with every head group its head_dim
+    allows, each with and without pairing t tiles; each held against the
+    plain version and timed as in the `kernels` phase (K2 over the stacked
+    layers); the plans' own choices are named."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import build
@@ -644,6 +687,9 @@ def phase_plans(paths, batch, max_seq) -> None:
     dtype = torch.bfloat16
     tile = build.load().rt_flash_decode_tile()
     for cfg, prefill_len in paths:
+        if cfg.family in ("ssm", "hybrid"):
+            emit("plans", arch=cfg.name, ssd_intra=plans_ssd(gen, cfg,
+                                                             prefill_len))
         if cfg.family not in ("dense", "hybrid"):
             continue
         a = cfg.attn
@@ -693,6 +739,33 @@ def phase_plans(paths, batch, max_seq) -> None:
                            "chosen_splits": fd.split_plan(
                                batch, kv, max_seq, tile)[0],
                            "ms_by_splits": k2})
+
+
+def plans_ssd(gen, cfg, prefill_len: int) -> dict:
+    """K3 at the prefill shape of `cfg` with every bf16 plan: each head
+    group of `TC_HEADS[hp]`, t tiles alone and paired."""
+    from repro_torch.kernels import ssd as K
+    from repro_torch.models.ssm import ssm_dims
+    _, nh = ssm_dims(cfg)
+    b, s, hp, n, chunk = 1, prefill_len, cfg.ssm.head_dim, cfg.ssm.d_state, \
+        cfg.ssm.chunk
+    args = _ssd_inputs(gen, b, s, nh, hp, n, torch.bfloat16)
+    want = K.ssd_intra_plain(*args, chunk)
+    chosen = K.ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16)
+    ms = {}
+    for g in K.TC_HEADS[hp]:
+        for pair in (False, True):
+            plan = K.ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16,
+                              heads_per_block=g, pair=pair)
+            call = lambda: K.launch_with_plan(*args, chunk, plan)  # noqa: E731
+            _check_ssd(call(), want, ("plans", g, pair), {})
+            ms[f"heads {g}, {'paired' if pair else 'alone'}"] = {
+                "ms": time_ms(call), "blocks": plan.blocks}
+    return {"shape": [b, s, nh, hp, n, chunk],
+            "chosen": {"heads_per_block": chosen.heads_per_block,
+                       "pair": chosen.pair},
+            "plain_ms": time_ms(lambda: K.ssd_intra_plain(*args, chunk)),
+            "ms_by_plan": ms}
 
 
 def _wrappers() -> dict:

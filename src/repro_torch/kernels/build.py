@@ -36,6 +36,8 @@ SIGNATURES = {
     "rt_flash_decode_tile": [],
     "rt_ssd_intra": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _P],
+    "rt_ssd_intra_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

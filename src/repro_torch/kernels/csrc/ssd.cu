@@ -1,4 +1,6 @@
-// SSD (Mamba2) intra-chunk tile for Hopper (sm_90a), written by hand.
+// SSD (Mamba2) intra-chunk tile for Hopper (sm_90a), written by hand: the
+// IEEE-f32 kernel.  It serves f32 inputs, and bf16 inputs whose pointers the
+// tensor-core kernel of ssd_tc.cu cannot copy from (kernels/ssd.py routes).
 //
 // Replaces the Pallas kernel `_ssd_kernel` / `ssd_intra` of
 // src/repro/kernels/ssd.py.  For xh [B,S,nh,hp], dt [B,S,nh] (f32), A [nh]
@@ -33,9 +35,8 @@
 // (about 13 MB at mamba2-780m's B 1, S 512, nh 48, hp 64, N 128), against
 // about 1.2 GFLOP if C B^T is counted once per (batch, chunk).  This first
 // version is far from that bound: it recomputes C B^T for every head, as the
-// TPU kernel does, and runs all three products on the CUDA cores.  Sharing
-// C B^T across heads and moving the products to the tensor cores are the
-// levers for the redesign.
+// TPU kernel does, and runs all three products on the CUDA cores; ssd_tc.cu
+// shares C B^T across heads and moves the products to the tensor cores.
 #include "common.cuh"
 
 namespace rt {

@@ -48,6 +48,7 @@ def test_sources_were_found():
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
     assert (PKG / "kernels" / "csrc" / "ssd.cu").exists()
+    assert (PKG / "kernels" / "csrc" / "ssd_tc.cu").exists()
 
 
 def _module_names():

@@ -175,3 +175,136 @@ def test_decode_layout_fits(hd, dtype):
     assert lay["lanes_per_key"] * lay["segments_per_lane"] * 16 == hd * elt
     assert lay["lanes_per_key"] * lay["keys_per_step"] == 32
     assert lay["smem_bytes"] <= SMEM_LIMIT
+
+
+# ---- K3: ssd_plan -----------------------------------------------------------
+
+from repro_torch.kernels.ssd import (PAIR_WAVES, T_TILE,  # noqa: E402
+                                     TC_BLOCKS_PER_SM, TC_HEADS, chunking,
+                                     ssd_plan, tc_smem_bytes)
+from repro_torch.kernels.ssd import TARGET_BLOCKS as SSD_TARGET  # noqa: E402
+
+# (B, S, nh, hp, N, chunk): chip_smoke.sweep_ssd's shapes, then the serving
+# paths' prefills (mamba2-780m, zamba2-1.2b)
+SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 96, 3, 16, 8, 32),
+              (1, 80, 4, 32, 16, 32), (2, 40, 3, 16, 8, 64),
+              (1, 512, 4, 64, 128, 256), (2, 300, 5, 64, 64, 256),
+              (1, 1000, 2, 32, 128, 256), (3, 7, 2, 16, 4, 16),
+              (1, 512, 48, 64, 128, 256), (1, 512, 64, 64, 64, 256)]
+SSD_SERVING = SSD_SHAPES[-2:]
+
+
+def _ssd_plans(b, s, nh, hp, n, chunk):
+    """Every plan the wrapper or chip_smoke's plans phase can launch."""
+    yield ssd_plan(b, s, nh, hp, n, chunk, torch.float32)
+    yield ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16)
+    for g in TC_HEADS[hp]:
+        for pair in (False, True):
+            yield ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16,
+                           heads_per_block=g, pair=pair)
+
+
+@pytest.mark.parametrize("b,s,nh,hp,n,chunk", SSD_SHAPES)
+def test_ssd_plan_covers_every_causal_pair_once(b, s, nh, hp, n, chunk):
+    """Every (t, s <= t) pair of every (batch, chunk, head) is walked by
+    exactly one block, and no pair above the diagonal is: a block that writes
+    the y rows of t tile tt (those before the chunk's last valid step) walks
+    the s tiles 0..tt."""
+    q, nc, _ = chunking(s, chunk)
+    for plan in _ssd_plans(b, s, nh, hp, n, chunk):
+        counts = np.zeros((b, nc, nh, q, q), dtype=np.int32)
+        for blk in plan.blocks_list():
+            valid = min(q, s - blk["c"] * q)
+            for tt in blk["t_tiles"]:
+                t0, t1 = tt * T_TILE, min(valid, (tt + 1) * T_TILE)
+                s1 = min(q, (tt + 1) * T_TILE)
+                assert t0 < t1
+                for h in blk["heads"]:
+                    counts[blk["b"], blk["c"], h, t0:t1, :s1] += 1
+        for c in range(nc):
+            valid = min(q, s - c * q)
+            t = np.arange(q)[:, None]
+            u = np.arange(q)[None, :]
+            want = ((u <= t) & (t < valid)).astype(np.int32)
+            got = np.where(u <= t, counts[:, c], 0)
+            assert (got == want).all(), (plan, c)
+
+
+@pytest.mark.parametrize("b,s,nh,hp,n,chunk", SSD_SHAPES)
+def test_ssd_plan_writes_every_state_once(b, s, nh, hp, n, chunk):
+    """s_chunk, cum and decay of every (batch, chunk, head) come from exactly
+    one block, and the grid's y items and state items are disjoint."""
+    q, nc, _ = chunking(s, chunk)
+    for plan in _ssd_plans(b, s, nh, hp, n, chunk):
+        seen = {}
+        for blk in plan.blocks_list():
+            if blk["states"]:
+                assert len(blk["heads"]) == 1
+                key = (blk["b"], blk["c"], blk["heads"][0])
+                seen[key] = seen.get(key, 0) + 1
+            if plan.route == "tc":
+                assert blk["states"] != bool(blk["t_tiles"])
+        assert seen == {(i, c, h): 1 for i in range(b) for c in range(nc)
+                        for h in range(nh)}, plan
+
+
+@pytest.mark.parametrize("b,s,nh,hp,n,chunk", SSD_SHAPES)
+def test_ssd_plan_reaches_the_blocks_it_aims_at(b, s, nh, hp, n, chunk):
+    """bf16: the largest head group whose grid has a block for every SM;
+    a smaller group only where the larger one falls short; a long and a
+    short t tile paired only where the unpaired grid takes more than
+    PAIR_WAVES waves of TC_BLOCKS_PER_SM blocks an SM."""
+    plan = ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16)
+    assert plan.route == "tc" and plan.target_blocks == SSD_TARGET == N_SMS
+    g = plan.heads_per_block
+    assert g in TC_HEADS[hp] and g * hp <= 128
+    if g > 1:
+        unpaired = ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16,
+                            heads_per_block=g, pair=False)
+        assert unpaired.blocks >= plan.target_blocks
+    for bigger in TC_HEADS[hp]:
+        if bigger > g:
+            assert ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16,
+                            heads_per_block=bigger,
+                            pair=False).blocks < plan.target_blocks
+    unpaired = ssd_plan(b, s, nh, hp, n, chunk, torch.bfloat16,
+                        heads_per_block=g, pair=False)
+    waves = unpaired.blocks / (TC_BLOCKS_PER_SM * N_SMS)
+    # paired where the unpaired grid takes more than PAIR_WAVES waves
+    assert plan.pair == (plan.n_tt > 1 and waves > PAIR_WAVES
+                         and plan.blocks >= plan.target_blocks)
+
+
+def test_ssd_plan_at_the_serving_paths():
+    mamba2 = ssd_plan(*SSD_SERVING[0], torch.bfloat16)
+    assert (mamba2.heads_per_block, mamba2.pair, mamba2.grid) == (
+        2, False, (24, 2, 6))
+    zamba2 = ssd_plan(*SSD_SERVING[1], torch.bfloat16)
+    assert (zamba2.heads_per_block, zamba2.pair, zamba2.grid) == (
+        2, True, (32, 2, 4))
+    for plan in (mamba2, zamba2):
+        assert plan.blocks >= plan.target_blocks
+        # two blocks fit one SM's shared memory (1 KB each reserved)
+        assert TC_BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= 233_472
+    f32 = ssd_plan(*SSD_SERVING[0], torch.float32)
+    assert (f32.route, f32.grid) == ("f32", (2, 48, 1))
+
+
+@pytest.mark.parametrize("hp", sorted(TC_HEADS))
+@pytest.mark.parametrize("n", [4, 8, 12, 64, 124, 128])
+def test_ssd_plan_shared_memory_fits(hp, n):
+    """Every plan at every chunk length up to 256 asks for shared memory
+    that fits one block, computed from its tiles as the kernel does."""
+    for q in (7, 16, 64, 100, 256):
+        for g in TC_HEADS[hp]:
+            for pair in (False, True):
+                plan = ssd_plan(1, q, 8, hp, n, q, torch.bfloat16,
+                                heads_per_block=g, pair=pair)
+                qp = -(-q // 64) * 64
+                ldb, ldx = -(-n // 16) * 16 + 8, g * hp + 8
+                want = 4 * (3 * g * qp + qp) + 2 * 64 * ldb + \
+                    2 * 2 * 64 * (ldb + ldx)
+                assert plan.smem_bytes == tc_smem_bytes(hp, g, q, n) == want
+                assert want <= SMEM_LIMIT
+        f32 = ssd_plan(1, q, 8, hp, n, q, torch.float32)
+        assert f32.smem_bytes <= SMEM_LIMIT
