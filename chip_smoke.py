@@ -13,15 +13,21 @@ each path it checks by the launch counters that every prefill went through
 the kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and
 every decode step through K2 per attention layer, holds the kernel path
 against the plain path on the card (in bf16 and in f32 activations), and
-builds the interval profile of the run.
+builds the interval profile of the run.  Last it trains full-width
+qwen3-1.7b for 6 steps through the port's ``Trainer`` (bf16, AdamW with the
+f32 master, the work meter in the step, the interval profile at the end) on
+the chunked attention, which is how the JAX package trains: K1, K2 and K3
+must launch 0 times there, and on a tensor that requires grad each kernel
+wrapper must refuse to run.
 
 Every phase prints one JSON object on a line of its own.  The line before the
-last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths;
-error, time, the plain version's time, one library call's time as a yardstick
-that the port itself never calls, or null where no single call computes the
-function, and the least time the card could take, at the first path's shape,
-and the same at every path's shape, ``full_width``, and for K1 and K2 at one
-long shape, ``long``, timed and not gated).  The last line is
+last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths
+and the train path; error, time, the plain version's time, one library
+call's time as a yardstick that the port itself never calls, or null where
+no single call computes the function, and the least time the card could
+take, at the first path's shape, and the same at every path's shape,
+``full_width``, and for K1 and K2 at one long shape, ``long``, timed and not
+gated).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase raises and the run exits
 non-zero; with no CUDA device it exits non-zero at once.
 
@@ -30,6 +36,7 @@ while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
 times K1, K2 and K3 with every tile choice their launch plans choose from.
+``--phases device,train`` runs the training phase alone.
 """
 from __future__ import annotations
 
@@ -1033,17 +1040,253 @@ def phase_profile(eng) -> None:
          blocks=list(names), **extra)
 
 
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 6, 512, 4, 3e-4
+GRAD_CHECK_TOL = 2e-4     # chunked vs reference attention, of a leaf's max |grad|
+
+
+def phase_train(cfg) -> dict:
+    """The train path: `Trainer` at full width and depth, bf16, with the
+    launcher's AdamW and schedule, `TRAIN_STEPS` steps of `TRAIN_BATCH` x
+    `TRAIN_SEQ` tokens on the chunked attention.  Checks finite losses and
+    gradient norms, the work meter against the block table, the interval
+    profile, that no kernel launched, that a kernel wrapper refuses a tensor
+    that requires grad, and that three steps on one batch lower its loss;
+    times the steps and traces one under torch.profiler."""
+    from repro_torch.core.meter import meter_value
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import constant, linear_warmup_cosine
+    from repro_torch.train import Trainer
+    from repro_torch.train.state import make_train_step
+
+    cfg = dataclasses.replace(cfg, attention_impl="chunked",
+                              ssm_impl="chunked")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                 interval_steps=2.0, instrument=True,
+                 opt=AdamWConfig(lr=TRAIN_LR),
+                 lr_fn=linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                            TRAIN_STEPS))
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counters to 0 just before, read just after ---------
+    reset_counters()
+    state = tr.run(TRAIN_STEPS, state=state)
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == {k: 0 for k in KERNELS}, launches
+
+    rows = list(tr.metrics_history)
+    assert len(rows) == TRAIN_STEPS, rows
+    for r in rows:
+        assert math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]), r
+        assert r["grad_norm"] > 0, r
+    table = tr.table
+    uow = int(round(table.step_uow()))
+    assert meter_value(state.meter) == TRAIN_STEPS * uow
+    reading = tr.meter_reading
+    assert int(reading["uow"]) == TRAIN_STEPS * uow, reading
+    assert reading["steps"] == TRAIN_STEPS, reading
+    want_counts = TRAIN_STEPS * table.step_counts()
+    assert (reading["counts"] == want_counts).all(), (reading, want_counts)
+    prof = tr.profile()
+    assert prof.n_intervals >= 2, prof.n_intervals
+    step_times = [t * 1e3 for t in tr.step_times]
+    step_ms = statistics.median(step_times[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+
+    # one step under torch.profiler, after a step timed by the host clock,
+    # and its parts apart
+    batch0 = tr._device_batch(0)
+    trace = train_step_trace(lambda: tr._step_fn(state, batch0))
+    trace["parts"] = train_step_parts(tr, state, batch0)
+
+    # the §0 repair on the card: no differentiating through a kernel
+    refused = kernels_refuse_grad(cfg, state.params, batch0)
+
+    # three steps on one batch at a constant rate lower its loss
+    step = make_train_step(tr.model, tr.opt_cfg, constant(TRAIN_LR),
+                           instrument=False)
+    losses = []
+    for _ in range(3):
+        state, m, _ = step(state, batch0)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        losses.append(float(tr.model.loss(state.params, batch0)[0]))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    del state, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grad = grad_check(cfg)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, seq_len=TRAIN_SEQ,
+               batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+               table_seconds=table_s, init_seconds=init_s,
+               step_ms=step_times,
+               median_step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               peak_memory_bytes=peak, losses=[r["loss"] for r in rows],
+               grad_norms=[r["grad_norm"] for r in rows],
+               step_uow=table.step_uow(), meter_uow=int(reading["uow"]),
+               n_intervals=prof.n_intervals, launches=launches,
+               one_batch_losses=losses, trace=trace, refused=refused,
+               grad_check=grad)
+    emit("train", **out)
+    return launches
+
+
+def train_step_trace(fn) -> dict:
+    """Host ms of one call (host clock around a call that ends in a
+    synchronise), and under torch.profiler its device busy ms (the sum of
+    kernel times), idle share and kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"host_ms": host_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
+            "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"name": k[:70], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:8]]}
+
+
+def train_step_parts(tr, state, batch) -> dict:
+    """`train_step_trace` of the step's parts: the loss alone (no grad),
+    the loss and its gradients (forward, rematerialised forward, backward),
+    and the AdamW update."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import adamw_update
+    leaves = tree_leaves(state.params)
+
+    def loss():
+        with torch.no_grad():
+            return tr.model.loss(state.params, batch)[0]
+
+    def grads():
+        with torch.enable_grad():
+            return torch.autograd.grad(tr.model.loss(state.params, batch)[0],
+                                       leaves)
+
+    def like(tree, it):
+        return {k: like(v, it) if isinstance(v, dict) else next(it)
+                for k, v in tree.items()}
+
+    g = like(state.params, iter(grads()))
+    lr = tr.lr_fn(state.step)
+    parts = {name: train_step_trace(fn) for name, fn in (
+        ("loss_forward", loss), ("loss_and_grad", grads),
+        ("adamw_update", lambda: adamw_update(state.params, g, state.opt,
+                                              tr.opt_cfg, lr)))}
+    for part in parts.values():
+        part["top"] = part["top"][:4]
+    return parts
+
+
+def kernels_refuse_grad(cfg, params, batch) -> dict:
+    """Each kernel wrapper, given CUDA tensors that require grad under grad
+    mode, raises instead of returning an output without a grad_fn; so does
+    `Model.loss` on `attention_impl="cuda"`.  None of them launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd import ssd_intra
+    from repro_torch.models.model_zoo import build_model
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device="cuda", dtype=dtype
+                           ).requires_grad_()
+
+    q, k = leaf(1, 64, 4, 64), leaf(1, 64, 4, 64)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": lambda: flash_attention(q, k, k, group=1),
+        "flash_decode": lambda: flash_decode(q[:, :1], k, k, lengths, group=1),
+        "ssd_intra": lambda: ssd_intra(
+            q, leaf(1, 64, 4, dtype=torch.float32),
+            leaf(4, dtype=torch.float32), leaf(1, 64, 16), leaf(1, 64, 16),
+            64),
+        "model_loss_cuda": lambda: build_model(dataclasses.replace(
+            cfg, attention_impl="cuda")).loss(params, batch),
+    }
+    before = read_counters()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert "chunked" in str(e), (name, e)
+            out[name] = str(e)[:80]
+        else:
+            raise AssertionError(f"{name} ran under grad on a tensor that "
+                                 "requires grad")
+    assert read_counters() == before
+    return out
+
+
+def grad_check(cfg) -> dict:
+    """Full width, 2 layers, f32 params and compute, one batch of 2 x 256:
+    the gradients of every leaf through `attention_impl="chunked"` (kv
+    chunks of 128, so the streaming softmax carries across chunks) against
+    `"reference"` (the quadratic softmax), within GRAD_CHECK_TOL of the
+    leaf's largest gradient."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                compute_dtype="float32", attn_chunk=128)
+    models = {impl: build_model(dataclasses.replace(small, attention_impl=impl))
+              for impl in ("chunked", "reference")}
+    params = models["chunked"].init(torch.Generator().manual_seed(0))
+    leaves = L.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    b = SyntheticCorpus(cfg.vocab_size, 256, 2, seed=0).batch_at(0)
+    dev = models["chunked"].device
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()
+             if k != "domains"}
+    grads, losses = {}, {}
+    for impl, m in models.items():
+        loss = m.loss(params, batch)[0]
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        losses[impl] = loss.item()
+    worst = 0.0
+    for gc_, gr in zip(grads["chunked"], grads["reference"]):
+        scale = gr.abs().max().item()
+        err = (gc_ - gr).abs().max().item()
+        assert math.isfinite(err) and err <= GRAD_CHECK_TOL * scale, \
+            (err, scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    return {"n_leaves": len(leaves), "worst_err_of_scale": worst,
+            "limit": GRAD_CHECK_TOL, "loss_chunked": losses["chunked"],
+            "loss_reference": losses["reference"]}
+
+
 # ---------------------------------------------------------------------------
 
 # (arch, prefill_len): every path at full width and depth, bf16, random
 # weights from seed 0.  The SSM paths prefill 512 steps: two SSD chunks, so
 # the inter-chunk carry is on the path.
 PATHS = (("qwen3-1.7b", 256), ("mamba2-780m", 512), ("zamba2-1.2b", 512))
+TRAIN_ARCH = "qwen3-1.7b"      # the train path, after the serving paths
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,serve,profile")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,serve,profile,train")
     ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
                     help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
@@ -1071,9 +1314,11 @@ def main() -> int:
         if "kernels" in phases else None
     if "plans" in phases:
         phase_plans(paths, batch, max_seq)
-    if "serve" not in phases:
-        return 0
     per_path = {}
+    if "serve" not in phases:
+        if "train" in phases:
+            phase_train(get_config(TRAIN_ARCH))
+        return 0
     for cfg, prefill_len in paths:
         eng, launches, params = phase_serve(cfg, batch, max_seq, prefill_len,
                                             n_requests)
@@ -1085,7 +1330,9 @@ def main() -> int:
         del eng, params
         gc.collect()
         torch.cuda.empty_cache()
-    if checks is None or len(paths) < len(PATHS):
+    if "train" in phases:
+        per_path[f"{TRAIN_ARCH}/train"] = phase_train(get_config(TRAIN_ARCH))
+    if checks is None or len(paths) < len(PATHS) or "train" not in phases:
         return 0
 
     kernels = []

@@ -85,9 +85,10 @@ class ArchConfig:
     # "cuda" = the hand-written kernels (kernels/flash_attention.py,
     # kernels/flash_decode.py; kernels/ssd.py plus the inter-chunk
     # recurrence of kernels/ops.ssd); on a CPU or meta tensor it resolves to
-    # their plain versions.  "pallas" (both) and attention's "chunked" are
-    # values of the JAX package that the port does not implement.
-    attention_impl: str = "cuda"      # cuda | reference
+    # their plain versions.  The kernels have no backward: training takes
+    # "chunked" for both, the JAX package's defaults.  "pallas" is the JAX
+    # package's TPU kernels and is not a value of the port.
+    attention_impl: str = "cuda"      # cuda | chunked | reference
     ssm_impl: str = "cuda"            # cuda | chunked | reference
     attn_chunk: int = 1024            # KV chunk for streaming attention
     attn_causal_skip: bool = False    # skip above-diagonal kv blocks (§Perf)

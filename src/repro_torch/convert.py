@@ -1,11 +1,15 @@
-"""Parameters of the JAX package, as nested dicts of numpy arrays, turned into
-the port's parameters (no counterpart in ``src/repro``).
+"""Parameters and train states of the JAX package, as numpy arrays, turned
+into the port's (no counterpart in ``src/repro``).
 
 The two packages share one parameter layout, so the conversion is leaf by
 leaf: every key and shape is checked against the port's specs and anything
 unknown or missing raises.  bf16 leaves arrive as ``ml_dtypes`` arrays and go
 through float32, which is exact.  The module imports no JAX: a caller turns
 the pytree into numpy first (``jax.tree.map(np.asarray, params)``).
+
+A train state carries over whole: parameters, the optimizer's step, moments
+and master copy, the step, the PRNG key (opaque) and the work meter, whose
+two uint32 limbs become the port's one int64 counter.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.core.meter import meter_from_limbs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -66,3 +71,31 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def train_state_from_numpy(state, cfg: ArchConfig, device: DeviceLike = None):
+    """``state``: the JAX package's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``), read by attribute.  Returns the
+    port's ``TrainState`` on ``device``, parameters requiring grad."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.state import TrainState
+    dev = resolve_device(device)
+    params = params_from_numpy(state.params, cfg, dev)
+    for p in L.tree_leaves(params):
+        p.requires_grad_(True)
+    f32 = torch.float32
+    opt = state.opt
+    has_master = np.asarray(L.tree_leaves(opt.master)[0]).size > 0
+    master = (params_from_numpy(opt.master, cfg, dev, f32) if has_master
+              else L.map_specs(lambda s: torch.zeros((0,), device=dev),
+                               T.lm_specs(cfg, T.ModelDims.make(cfg, 1))))
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32).to(dev)
+
+    opt_t = OptState(scalar(opt.step), params_from_numpy(opt.mu, cfg, dev, f32),
+                     params_from_numpy(opt.nu, cfg, dev, f32), master)
+    meter = (meter_from_limbs(state.meter, dev) if state.meter is not None
+             else None)
+    return TrainState(scalar(state.step), params, opt_t,
+                      np.asarray(state.rng, np.uint32), meter)

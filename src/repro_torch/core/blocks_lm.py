@@ -1,13 +1,14 @@
 # Counterpart of src/repro/core/blocks_lm.py: the dense, SSM and hybrid
-# branches.  Not ported yet: the MoE and enc-dec branches with their virtual
-# blocks, and `_train_scale` (the traced forward+backward ratio of the
-# training step).
+# branches, and the train-step scaling.  Not ported yet: the MoE and enc-dec
+# branches with their virtual blocks.
 """Per-architecture BlockTable construction (the "interval analysis pass").
 
 This is the analogue of the paper's LLVM pass walking the IR: each model
 block is traced once on ``meta`` tensors (shapes and dtypes only, no
 allocation even at full width), its ATen op count is recorded as the block's
-IR size, and the step's hook-stream program is laid out.  The trace runs on
+IR size, and the step's hook-stream program is laid out.  Training steps
+scale block costs by the traced grad/fwd ratio so the unit of work covers the
+whole executed step (forward hook positions).  The trace runs on
 tensors that are not on the card, so it goes through the kernels' plain
 versions (K3's included, with ``ssm_impl="cuda"``) and never reaches a
 kernel launch.
@@ -15,16 +16,18 @@ kernel launch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import torch
 
-from repro_torch.configs.base import ShapeConfig, dtype_of
+from repro_torch.configs.base import (ArchConfig, ShapeConfig, dtype_of,
+                                      reduced)
 from repro_torch.core.registry import BlockDef, BlockTable, Segment
 from repro_torch.core.unit_of_work import IRCost, trace_cost
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, build_model, cross_entropy
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -34,18 +37,6 @@ def _meta(shape, dtype) -> torch.Tensor:
 def _spec_struct(specs, dtype):
     """ParamSpec tree -> meta-tensor tree (zero-cost tracing inputs)."""
     return L.map_specs(lambda s: _meta(s.shape, dtype), specs)
-
-
-def head_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The head block's loss term: cross-entropy with z-loss, written out as
-    in the reference so that the head block has the same meaning there and
-    here.  (The training slice brings `model_zoo.cross_entropy` proper.)"""
-    lf = logits.float()
-    m = torch.amax(lf, dim=-1, keepdim=True)
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    onehot = torch.nn.functional.one_hot(labels.long(), lf.shape[-1]).float()
-    nll = lse - torch.sum(lf * onehot, dim=-1)
-    return torch.mean(nll) + 1e-4 * torch.mean(torch.square(lse))
 
 
 def block_functions(model: Model, shape: ShapeConfig):
@@ -65,7 +56,7 @@ def block_functions(model: Model, shape: ShapeConfig):
 
     def head_fn(p, xx, lbl):
         h = L.rmsnorm(p["norm"], xx, cfg.norm_eps)
-        return head_loss(h.to(dt) @ p["head"], lbl)
+        return cross_entropy(h.to(dt) @ p["head"], lbl, cfg.vocab_size)[0]
 
     blocks = [("embed", lambda p, t: L.embed_lookup(p, t, dt), (emb_sp, toks))]
     if cfg.family in ("ssm", "hybrid"):
@@ -97,10 +88,6 @@ def build_block_table(model: Model, shape: ShapeConfig,
     ``s = 1``, not over the cache, as in the reference."""
     cfg = model.cfg
     T.require_ported(cfg)
-    if train and shape.kind == "train":
-        raise NotImplementedError(
-            "the training-step table (fwd+bwd scaling) is not ported yet: "
-            "see ROADMAP.md, Queue A, item 'training'")
     costs = {name: trace_cost(fn, *args)
              for name, fn, args in block_functions(model, shape)}
 
@@ -130,4 +117,50 @@ def build_block_table(model: Model, shape: ShapeConfig,
     if unit == "flops":
         blocks = [dataclasses.replace(
             bl, cost_ops=max(1.0, bl.cost_flops)) for bl in blocks]
-    return BlockTable(blocks, prog)
+    table = BlockTable(blocks, prog)
+
+    # ---- train-step scaling (fwd+bwd+optimizer coverage) -------------------
+    if train and shape.kind == "train":
+        scale = _train_scale(model)
+        table = BlockTable(
+            [dataclasses.replace(bl, cost_ops=bl.cost_ops * scale,
+                                 cost_flops=bl.cost_flops * scale)
+             for bl in table.blocks], table.program)
+    return table
+
+
+def train_scale_traced(cfg: ArchConfig) -> float:
+    """Traced grad/fwd ATen-op ratio of the loss of a reduced clone of
+    ``cfg``, on meta tensors.  The grad trace holds the rematerialised
+    forward, as the executed backward does."""
+    return _traced_ratio(reduced(cfg))
+
+
+@functools.lru_cache(maxsize=32)
+def _traced_ratio(cfg_r: ArchConfig) -> float:
+    """One trace per reduced config (equal configs share it)."""
+    m_r = build_model(cfg_r, device="meta")
+    dt = dtype_of(cfg_r.param_dtype)
+    toks = _meta((2, 16), torch.int64)
+
+    def loss(p, t):
+        return m_r.loss(p, {"tokens": t, "labels": t})[0]
+
+    def grad(p, t):
+        with torch.enable_grad():
+            return torch.autograd.grad(loss(p, t), L.tree_leaves(p))
+
+    fwd = trace_cost(loss, _spec_struct(m_r.specs(), dt), toks)
+    sp = L.map_specs(lambda s: _meta(s.shape, dt).requires_grad_(),
+                     m_r.specs())
+    bwd = trace_cost(grad, sp, toks)
+    return max(1.0, bwd.ops / max(fwd.ops, 1.0))
+
+
+def _train_scale(model: Model) -> float:
+    """``train_scale_traced``, or the reference's fallback of 3.0 where the
+    trace fails."""
+    try:
+        return train_scale_traced(model.cfg)
+    except Exception:
+        return 3.0

@@ -1,6 +1,6 @@
 # Counterpart of src/repro/kernels/flash_attention.py (`flash_attention`,
-# body `_flash_kernel`).  Forward only, as there; the backward waits for the
-# training slice.
+# body `_flash_kernel`).  Forward only, as there: the JAX package trains with
+# `attention_impl="chunked"`, and so does the port, so no backward is needed.
 """Flash attention forward (GQA, causal, sliding window, soft-cap): CUDA
 kernels written by hand for Hopper, their plain PyTorch version, the launch
 plan, and the wrapper that chooses between kernel and plain version by where
@@ -197,6 +197,18 @@ def check_inputs(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor is not 16-byte aligned")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels write their outputs through raw pointers, so those have no
+    ``grad_fn``: differentiating through a launch would give the inputs no
+    gradient and raise nothing.  Raise instead, under grad mode, when any
+    input requires grad (training takes the chunked paths)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; train with "
+            "attention_impl=\"chunked\" and ssm_impl=\"chunked\" (the JAX "
+            "package's training defaults)")
+
+
 def window_arg(name: str, window: Window) -> int:
     """The kernels take the window as a launch argument, so on the card it
     is a host integer (a device tensor would cost a synchronisation)."""
@@ -220,6 +232,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, group=group, causal=causal,
                                      window=window, cap=cap)
+    refuse_grad("flash_attention", q, k, v)
     check_inputs("flash_attention", q, k, v)
     b, s, h, hd = q.shape
     kv = k.shape[2]

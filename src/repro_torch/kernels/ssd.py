@@ -1,5 +1,6 @@
 # Counterpart of src/repro/kernels/ssd.py (`ssd_intra`, body `_ssd_kernel`,
-# `pallas_call` at :82).  Forward only, as there.  `ssd_intra` returns the
+# `pallas_call` at :82).  Forward only, as there (training takes
+# `ssm_impl="chunked"`, in the JAX package and here).  `ssd_intra` returns the
 # reference's four outputs; its `cum` is written by the kernel itself (the
 # reference recomputes it outside), and `y` is not padded to whole chunks.
 """SSD (Mamba2) intra-chunk tile: CUDA kernels written by hand for Hopper,
@@ -42,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPE_CODES, N_SMS
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, N_SMS,
+                                                 refuse_grad)
 
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
@@ -280,6 +282,7 @@ def ssd_intra(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     takes the plain version."""
     if xh.device.type != "cuda":
         return ssd_intra_plain(xh, dt, A, Bp, Cp, chunk)
+    refuse_grad("ssd_intra", xh, dt, A, Bp, Cp)
     _check(xh, dt, A, Bp, Cp)
     b, s, nh, hp = xh.shape
     dtype = xh.dtype if _tc_vec(xh, Bp, Cp) else torch.float32

@@ -1,8 +1,8 @@
-# Counterpart of src/repro/models/attention.py.  Not ported yet:
-# `attend_chunked` (pure streaming softmax, used by the training path), the
+# Counterpart of src/repro/models/attention.py.  Not ported yet: the
 # cross-attention inputs of `qkv` (`kv_x`, `kv_positions`, `rope=False`) and
 # `attend_reference`'s `kv_len`, which only the enc-dec family uses.
-"""GQA attention: reference (quadratic) and cuda (the hand-written kernels).
+"""GQA attention: reference (quadratic), chunked (streaming softmax in plain
+PyTorch, the training path's) and cuda (the hand-written kernels).
 
 Head padding.  The parameter layout pads q heads up to a multiple of the
 tensor-parallel size and expands kv heads by replication slots; pad heads are
@@ -18,6 +18,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels import ops as kops
@@ -187,6 +188,65 @@ def attend_reference(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
     return _gqa_out(probs, v, layout.h_pad).to(q.dtype)
 
 
+def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
+                   causal: bool, window, cap: float = 0.0,
+                   q_chunk: int = 1024, kv_chunk: int = 1024,
+                   causal_skip: bool = False) -> torch.Tensor:
+    """Streaming-softmax (flash-style) attention in plain PyTorch.  Exact,
+    and differentiable by autograd: it is the attention of the train step.
+
+    Loops over q blocks; for each q block loops over kv blocks carrying the
+    running (max, denom, acc).  Pad positions are -1 (q) and 2**30 (k), so
+    the mask removes them.  ``causal_skip`` stops each q block's loop at the
+    causal frontier (removes the ~2x masked FLOPs of the dense schedule)."""
+    b, sq, hp, hd = q.shape
+    sk = k.shape[1]
+    qc, kc = min(q_chunk, sq), min(kv_chunk, sk)
+    nq, nk = -(-sq // qc), -(-sk // kc)
+    pad_q, pad_k = nq * qc - sq, nk * kc - sk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = F.pad(k_pos, (0, pad_k), value=2 ** 30)
+    g = layout.group
+    n = hp // g
+
+    def q_block(qi: int, kv_hi: int) -> torch.Tensor:
+        qs = q[:, qi * qc:(qi + 1) * qc]
+        qp = q_pos[:, qi * qc:(qi + 1) * qc]
+        m = torch.full((b, n, g, qc), -math.inf, device=q.device)
+        l = torch.zeros((b, n, g, qc), device=q.device)
+        acc = torch.zeros((b, n, g, qc, hd), device=q.device)
+        for j in range(kv_hi):
+            kj = k[:, j * kc:(j + 1) * kc]
+            vj = v[:, j * kc:(j + 1) * kc]
+            s = _gqa_scores(qs, kj, g)                   # [b,n,g,qc,kc]
+            s = L.softcap(s, cap)
+            s = s + _mask_bias(qp, k_pos[:, j * kc:(j + 1) * kc], window,
+                               causal)[:, None, None]
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            scale = torch.exp(m - m_new)
+            l = l * scale + torch.sum(p, dim=-1)
+            pv = torch.matmul(p.reshape(b, n, g * qc, kc),
+                              vj.float().permute(0, 2, 1, 3))
+            acc = acc * scale[..., None] + pv.reshape(b, n, g, qc, hd)
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        out = acc / l[..., None]                         # [b,n,g,qc,hd]
+        return out.permute(0, 3, 1, 2, 4).reshape(b, qc, hp, hd)
+
+    if causal_skip and causal:
+        outs = [q_block(i, min(nk, ((i + 1) * qc - 1) // kc + 1))
+                for i in range(nq)]
+    else:
+        outs = [q_block(i, nk) for i in range(nq)]
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+
+
 def attend_decode_plain(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
                         window, cap: float = 0.0) -> torch.Tensor:
     """The reference's `attend_decode`: a plain masked softmax over the
@@ -229,17 +289,21 @@ def attend_decode(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
 
 
 def attend(impl: str, q, k, v, q_pos, k_pos, layout, *, causal, window,
-           cap=0.0):
+           cap=0.0, q_chunk=1024, kv_chunk=1024, causal_skip=False):
     if impl == "reference":
         return attend_reference(q, k, v, q_pos, k_pos, layout,
                                 causal=causal, window=window, cap=cap)
+    if impl == "chunked":
+        return attend_chunked(q, k, v, q_pos, k_pos, layout, causal=causal,
+                              window=window, cap=cap, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, causal_skip=causal_skip)
     if impl == "cuda":
         return kops.flash_attention(q, k, v, q_pos, k_pos,
                                     group=layout.group, causal=causal,
                                     window=window, cap=cap)
-    if impl in ("chunked", "pallas"):
+    if impl == "pallas":
         raise NotImplementedError(
-            f"attention impl {impl!r} is the JAX package's; the port has "
-            "'cuda' and 'reference' ('chunked' comes with the training "
-            "slice, ROADMAP.md Queue A)")
+            "attention impl 'pallas' is the JAX package's TPU kernel; the "
+            "port has 'cuda' (its Hopper counterpart), 'chunked' and "
+            "'reference'")
     raise ValueError(f"unknown attention impl {impl!r}")

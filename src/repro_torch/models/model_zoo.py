@@ -1,9 +1,9 @@
 # Counterpart of src/repro/models/model_zoo.py: the dense, SSM and hybrid
-# decoder LMs.  Not ported yet: `cross_entropy` and `Model.loss` (training),
-# `Model.axes`, the dry-run input specs, and the MoE, enc-dec and VLM
-# families.
-"""Unified model facade: build an architecture, expose init / forward /
-prefill / decode plus cache construction.
+# decoder LMs.  Not ported yet: `Model.axes`, the dry-run input specs, the
+# MoE, enc-dec and VLM families, and with MoE the router's auxiliary loss in
+# `Model.loss`.
+"""Unified model facade: build an architecture, expose init / loss /
+forward / prefill / decode plus cache construction.
 
 ``Model`` holds no parameters: as in the reference they are a nested dict of
 tensors that the caller owns and passes to every call.  ``device`` is fixed
@@ -24,6 +24,27 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelDims
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int, *, z_loss: float = 1e-4):
+    """CE with z-loss, in f32, as the reference.  logits: [B,S,V], labels:
+    [B,S].  Returns (loss, nll [B,S]).
+
+    The max is detached where it shifts the logits and not where it is added
+    back, as in the reference, so the gradients are the reference's.  The
+    correct-class logit is gathered (a one-hot over the vocabulary would be
+    an int64 tensor of 2.5 GB at qwen3-1.7b's train shape)."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    shifted = lf - m.detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    correct = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - correct
+    loss = torch.mean(nll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss, nll
 
 
 @dataclasses.dataclass
@@ -47,6 +68,16 @@ class Model:
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         return T.lm_forward(self.params_on_device(params), self.cfg,
                             self.dims, batch["tokens"])
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """(loss, aux) with ``aux["nll_mean"]``; differentiable (the forward
+        runs in the caller's grad mode, rematerialised under grad)."""
+        logits, aux = T.lm_forward(self.params_on_device(params), self.cfg,
+                                   self.dims, batch["tokens"])
+        loss, nll = cross_entropy(logits, batch["labels"],
+                                  self.cfg.vocab_size)
+        aux["nll_mean"] = torch.mean(nll)
+        return loss, aux
 
     # ---- serving ---------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int):

@@ -1,25 +1,29 @@
 # Counterpart of src/repro/models/transformer.py: the dense, SSM and hybrid
 # families.  Not ported yet: the MoE layer body and `_aux_zero`'s MoE keys,
-# the VLM patch projection, rematerialisation and grouped layer scans
-# (training), and the `shard(...)` constraints (identities on one device)
-# and the `rng` / `patch_embeds` arguments that only those families use.
+# the VLM patch projection, `remat="selective"` (no config of the repo uses
+# it), and the `shard(...)` constraints (identities on one device) and the
+# `rng` / `patch_embeds` arguments that only those families use.
 """Decoder-only LM covering the dense, SSM and hybrid families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
 leading "layer" axis.  The reference scans over that axis; here it is a Python
-loop that slices layer ``i`` off every leaf (a view, no copy).  Per-layer
-static attention windows (gemma3's 5:1 local:global) ride along as Python
-ints.  Hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers with one
-SHARED attention block after each group (its parameters live outside the
-stack and are reused).
+loop over the per-layer views that ``split_layers`` makes once per forward.
+With grad enabled each layer (or group of ``remat_group`` layers) is
+rematerialised in the backward, as the reference's ``_maybe_remat`` does.
+Per-layer static attention windows (gemma3's 5:1 local:global) ride along as
+Python ints.  Hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers
+with one SHARED attention block after each group (its parameters live
+outside the stack and are reused).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.models import attention as A
@@ -115,6 +119,40 @@ def layer_params(params, cfg: ArchConfig, i: int):
     return params["layers"][f"layer_{i}"]
 
 
+def split_layers(params, cfg: ArchConfig) -> List[Dict[str, Any]]:
+    """Every layer's parameters, from one ``unbind`` of each stacked leaf
+    (views).  Under autograd the backward of an ``unbind`` is one ``stack``;
+    indexing the leaf once per layer would make each layer's backward build
+    a zero gradient the size of the whole stacked leaf."""
+    if not cfg.scan_layers:
+        return [params["layers"][f"layer_{i}"] for i in range(cfg.n_layers)]
+
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    parts = split(params["layers"])
+    return [pick(parts, i) for i in range(cfg.n_layers)]
+
+
+def _maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` recomputed in the backward (``remat="full"``), when grad is
+    enabled; as it is otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported (the port has 'full' and "
+            "'none')")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
@@ -134,7 +172,8 @@ def _attn_out(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
                     rope_tables=rope)
     ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
                    dims.layout, causal=True, window=window,
-                   cap=cfg.attn.softcap)
+                   cap=cfg.attn.softcap, q_chunk=cfg.attn_chunk,
+                   kv_chunk=cfg.attn_chunk, causal_skip=cfg.attn_causal_skip)
     return A.out_proj(p["attn"], dims.layout, ctx, dt), (k, v)
 
 
@@ -173,7 +212,7 @@ def ssm_layer(p, cfg, x, *, aux=None):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -182,26 +221,40 @@ def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
     """Run all layers full-sequence.  Returns (x, aux, kv or None); kv is a
     pair of per-layer (hybrid: per-group) lists of [B,S,KVp,hd] tensors."""
     require_ported(cfg)
+    layers = split_layers(params, cfg)
     if cfg.family == "ssm":
-        aux: Dict = {}
-        for i in range(cfg.n_layers):
-            x, aux = ssm_layer(layer_params(params, cfg, i), cfg, x, aux=aux)
-        return x, aux, None
+        body = _maybe_remat(lambda xc, p: ssm_layer(p, cfg, xc)[0], cfg)
+        for p in layers:
+            x = body(x, p)
+        return x, {}, None
     if cfg.family == "hybrid":
-        return _hybrid_stack(params, cfg, dims, x, positions,
+        return _hybrid_stack(params, layers, cfg, dims, x, positions,
                              collect_kv=collect_kv)
     windows = cfg.layer_windows()
     rope = rope_tables(cfg, positions)           # once for all layers
-    aux: Dict = {}
+    g = cfg.remat_group
+    if not (cfg.scan_layers and g > 1 and cfg.n_layers % g == 0
+            and not collect_kv):
+        g = 1
+
+    def body(xc, lo: int):
+        # remat GROUPS of g layers: the backward stash holds one residual
+        # per group instead of one per layer
+        kvs = []
+        for i in range(lo, lo + g):
+            xc, kv, _ = dense_layer(layers[i], cfg, dims, xc, positions,
+                                    windows[i], plus_one=plus_one, rope=rope)
+            if collect_kv:
+                kvs.append(kv)
+        return xc, kvs
+
+    body = _maybe_remat(body, cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v), aux = dense_layer(layer_params(params, cfg, i), cfg, dims,
-                                     x, positions, windows[i],
-                                     plus_one=plus_one, aux=aux, rope=rope)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    return x, aux, ((ks, vs) if collect_kv else None)
+    for lo in range(0, cfg.n_layers, g):
+        x, kvs = body(x, lo)
+        ks += [k for k, _ in kvs]
+        vs += [v for _, v in kvs]
+    return x, {}, ((ks, vs) if collect_kv else None)
 
 
 def _hybrid_groups(cfg: ArchConfig):
@@ -223,27 +276,32 @@ def _shared_attn_block(params, cfg, dims, x, positions, *, collect_kv=False,
     q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
                     rope_tables=rope)
     ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
-                   dims.layout, causal=True, window=-1)
+                   dims.layout, causal=True, window=-1,
+                   q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     x = x + A.out_proj(p["attn"], dims.layout, ctx, dt)
     h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
     x = x + L.mlp(p["mlp"], h, cfg.act, dt)
     return x, (k, v) if collect_kv else None
 
 
-def _hybrid_stack(params, cfg, dims, x, positions, *, collect_kv=False):
+def _hybrid_stack(params, layers, cfg, dims, x, positions, *,
+                  collect_kv=False):
+    """Groups of ``attn_every`` Mamba2 layers (each rematerialised under
+    grad, as the reference's ``ssm_body``), the shared block after each."""
     ae, n_groups, _ = _hybrid_groups(cfg)
     rope = rope_tables(cfg, positions)           # once for all groups
+    ssm_body = _maybe_remat(lambda xc, p: ssm_layer(p, cfg, xc)[0], cfg)
     ks, vs = [], []
     for g in range(n_groups):
-        for i in range(g * ae, (g + 1) * ae):
-            x, _ = ssm_layer(layer_params(params, cfg, i), cfg, x)
+        for p in layers[g * ae:(g + 1) * ae]:
+            x = ssm_body(x, p)
         x, kv = _shared_attn_block(params, cfg, dims, x, positions,
                                    collect_kv=collect_kv, rope=rope)
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    for i in range(n_groups * ae, cfg.n_layers):
-        x, _ = ssm_layer(layer_params(params, cfg, i), cfg, x)
+    for p in layers[n_groups * ae:]:
+        x = ssm_body(x, p)
     return x, {}, ((ks, vs) if collect_kv else None)
 
 

@@ -1,0 +1,116 @@
+# Counterpart of src/repro/train/state.py; nothing of it is left unported.
+# `jax.jit` and its donated buffers become a step that updates the state in
+# place; `init_train_state` also takes ready parameters (converted from the
+# JAX package, or restored).
+"""Train state + step construction (the Trainer wires I/O).
+
+``TrainState.rng`` is the reference's PRNG key carried as an opaque uint32[2]
+numpy array: the dense and SSM losses draw no random numbers, so the port
+only keeps it for the checkpoint's key paths.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.meter import init_meter, static_increment, tick_step
+from repro_torch.core.registry import BlockTable
+from repro_torch.models.layers import tree_leaves
+from repro_torch.models.model_zoo import Model
+from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
+                                     init_opt_state)
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor                      # int32 scalar on the device
+    params: Any
+    opt: OptState
+    rng: np.ndarray                         # uint32[2], opaque
+    meter: Optional[Dict[str, torch.Tensor]]
+
+
+def init_train_state(model: Model, init: Union[torch.Generator, Dict[str, Any]],
+                     opt_cfg: AdamWConfig,
+                     table: Optional[BlockTable] = None, *,
+                     rng: Optional[np.ndarray] = None) -> TrainState:
+    """``init``: a generator to draw the parameters from (``model.init``), or
+    ready parameters on the model's device, which the state then owns."""
+    if isinstance(init, torch.Generator):
+        params = model.init(init)
+        if rng is None:
+            rng = np.asarray([0, init.initial_seed() & 0xFFFFFFFF], np.uint32)
+    else:
+        params = model.params_on_device(init)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = init_opt_state(params, opt_cfg)
+    meter = init_meter(table, model.device) if table is not None else None
+    step = torch.zeros((), dtype=torch.int32, device=model.device)
+    rng = np.zeros(2, np.uint32) if rng is None else np.asarray(rng, np.uint32)
+    return TrainState(step, params, opt, rng, meter)
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
+                    *, table: Optional[BlockTable] = None,
+                    microbatch: int = 1,
+                    instrument: bool = True) -> Callable:
+    """Build the train step: (state, batch) -> (state, metrics, aux); the
+    state is updated in place and returned.
+
+    ``microbatch`` > 1 splits the global batch into that many accumulation
+    slices (f32 accumulators).  When ``instrument`` and a BlockTable is given
+    the WorkMeter hook (paper §III-C1) runs inside the step."""
+    tick = instrument and table is not None
+    inc = static_increment(table, "default", model.device) if tick else None
+
+    def grads_of(params, batch):
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            loss, aux = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def unflatten(params, leaves):
+        it = iter(leaves)
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            return next(it)
+        return walk(params)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if microbatch > 1:
+            b = batch["tokens"].shape[0]
+            mb = {k: v.reshape(microbatch, b // microbatch, *v.shape[1:])
+                  for k, v in batch.items()}
+            gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for p in tree_leaves(state.params)]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            aux: Dict[str, torch.Tensor] = {}
+            for i in range(microbatch):
+                l, a, g = grads_of(state.params,
+                                   {k: v[i] for k, v in mb.items()})
+                for acc, gi in zip(gacc, g):
+                    acc.add_(gi.float() / microbatch)
+                del g
+                loss = loss + l / microbatch
+                aux = {k: aux.get(k, 0) + v for k, v in a.items()}
+            grads = gacc
+        else:
+            loss, aux, grads = grads_of(state.params, batch)
+
+        lr = lr_fn(state.step)
+        _, _, om = adamw_update(state.params,
+                                unflatten(state.params, grads), state.opt,
+                                opt_cfg, lr)
+        del grads
+        if tick and state.meter is not None:
+            tick_step(state.meter, table, aux, inc=inc)
+        state.step.add_(1)
+        return state, {"loss": loss, **om}, aux
+
+    return train_step

@@ -111,9 +111,8 @@ def test_attend_rejects_impls_of_the_jax_package():
     _, _, _, pl = _layouts(4, 2, 16)
     q, k, v = (torch.from_numpy(a) for a in _qkv_arrays(1, 8, 4, 2, 16))
     pos = torch.arange(8)[None]
-    for impl in ("chunked", "pallas"):
-        with pytest.raises(NotImplementedError):
-            PA.attend(impl, q, k, v, pos, pos, pl, causal=True, window=-1)
+    with pytest.raises(NotImplementedError):
+        PA.attend("pallas", q, k, v, pos, pos, pl, causal=True, window=-1)
     with pytest.raises(ValueError):
         PA.attend("nope", q, k, v, pos, pos, pl, causal=True, window=-1)
 

@@ -85,3 +85,25 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(smoke):
     with pytest.raises(ValueError):                   # not contiguous
         ssd_intra(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, b,
                   b, 16)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_tensors_that_require_grad(smoke):
+    """On the card each kernel wrapper raises under grad mode on a tensor
+    that requires grad (its output would have no grad_fn), and so does
+    `Model.loss` through `attention_impl="cuda"`; nothing launches."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model_zoo import build_model
+    cfg = reduced(get_config("qwen3-1.7b"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    from repro_torch.models.layers import tree_leaves
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    toks = torch.zeros((1, 16), dtype=torch.int64, device="cuda")
+    out = smoke.kernels_refuse_grad(dataclasses.replace(
+        cfg, attention_impl="chunked"), params,
+        {"tokens": toks, "labels": toks})
+    assert set(out) == {"flash_attention", "flash_decode", "ssd_intra",
+                        "model_loss_cuda"}

@@ -43,7 +43,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
 def test_sources_were_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "flash_attention.py", "flash_decode.py", "build.py",
-            "chip_smoke.py", "convert.py", "ssd.py", "ssm.py"} <= names
+            "chip_smoke.py", "convert.py", "ssd.py", "ssm.py", "adamw.py",
+            "schedule.py", "meter.py", "replay.py", "synthetic.py",
+            "checkpointer.py", "state.py", "trainer.py", "train.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
@@ -91,6 +93,21 @@ def test_launcher_raises_without_a_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "qwen3-1.7b", "--reduced", "--requests", "1"])
+
+
+def test_train_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    from repro_torch.train import Trainer
+    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
+                              attention_impl="chunked", ssm_impl="chunked")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, instrument=False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
