@@ -18,11 +18,17 @@ qwen3-1.7b for 6 steps through the port's ``Trainer`` (bf16, AdamW with the
 f32 master, the work meter in the step, the interval profile at the end) on
 the chunked attention, which is how the JAX package trains: K1, K2 and K3
 must launch 0 times there, and on a tensor that requires grad each kernel
-wrapper must refuse to run.
+wrapper must refuse to run.  Then the staged nugget pipeline, through the
+port's ``Pipeline`` (profile, select, mark, baseline, replay, validate):
+full-width qwen3-1.7b on platforms bf16 and f32 in a fresh store (every
+stage computes), a warm rerun (every stage hits, no ``Trainer`` is built),
+a selector change (profile and baselines hit, the rest re-runs), full-width
+mamba2-780m on bf16, and ``workers=4`` against serial at the reduced size;
+K1, K2 and K3 must launch 0 times there too.
 
 Every phase prints one JSON object on a line of its own.  The line before the
-last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths
-and the train path; error, time, the plain version's time, one library
+last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
+the train path and the pipeline paths; error, time, the plain version's time, one library
 call's time as a yardstick that the port itself never calls, or null where
 no single call computes the function, and the least time the card could
 take, at the first path's shape, and the same at every path's shape,
@@ -36,7 +42,8 @@ while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
 times K1, K2 and K3 with every tile choice their launch plans choose from.
-``--phases device,train`` runs the training phase alone.
+``--phases device,train`` runs the training phase alone, and
+``--phases device,pipeline`` the pipeline phase.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1277,6 +1285,254 @@ def grad_check(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 # (arch, prefill_len): every path at full width and depth, bf16, random
+# The pipeline path: the command of the README, through `Pipeline` itself.
+PIPE_RUN = dict(steps=16, seq_len=256, batch=4, interval_steps=2.0)
+
+
+def _stage_names(platforms) -> list:
+    names = ["profile", "select", "mark"]
+    names += [f"baseline@{p}" for p in platforms]
+    names += [f"replay@{p}" for p in platforms]
+    return names + ["validate"]
+
+
+class _TrainerSpy:
+    """Counts the `Trainer`s a pipeline run builds and times each
+    `init_state` (every `runner.reset` draws a whole train state), by
+    standing in for `repro_torch.train.Trainer`, which `PipelineContext`
+    imports when it builds one."""
+
+    def __init__(self):
+        import repro_torch.train as train_pkg
+        self.pkg, self.real = train_pkg, train_pkg.Trainer
+        self.built, self.init_s = [], []
+        spy = self
+
+        class Trainer(self.real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                spy.built.append(self)
+
+            def init_state(self):
+                t0 = time.perf_counter()
+                state = super().init_state()
+                torch.cuda.synchronize()
+                spy.init_s.append(time.perf_counter() - t0)
+                return state
+
+        self.cls = Trainer
+
+    def __enter__(self):
+        self.pkg.Trainer = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        self.pkg.Trainer = self.real
+
+
+def _hits(manifest) -> dict:
+    return {s["stage"]: s["cache_hit"] for s in manifest["stages"]}
+
+
+def _run_pipeline(cfg, store) -> tuple:
+    """One `Pipeline.run` with a fresh spy: (manifest, spy, peak bytes)."""
+    from repro_torch.pipeline import Pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _TrainerSpy() as spy:
+        manifest = Pipeline(cfg, store).run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return manifest, spy, peak
+
+
+def _check_cold(manifest, platforms, n_intervals) -> None:
+    from repro_torch.core.profile_store import load_profile
+    names = _stage_names(platforms)
+    assert [s["stage"] for s in manifest["stages"]] == names, manifest["stages"]
+    assert manifest["cache_misses"] == len(names), _hits(manifest)
+    prof = load_profile(os.path.join(manifest["stages"][0]["path"], "profile"))
+    assert prof.n_intervals == n_intervals, prof.n_intervals
+    m = manifest["metrics"]
+    for p in platforms:
+        row = m["platforms"][p]
+        assert row["actual_s"] > 0 and row["predicted_s"] > 0, row
+        assert math.isfinite(row["error"]), row
+    assert len(m["speedup_errors"]) == len(platforms) * (len(platforms) - 1) // 2
+
+
+def _errors(manifest) -> dict:
+    m = manifest["metrics"]
+    return {"platforms": m["platforms"],
+            "speedup_errors": m["speedup_errors"],
+            "stage_wall_s": {s["stage"]: s["wall_s"]
+                             for s in manifest["stages"]}}
+
+
+def _peak_without_the_drop(runner) -> int:
+    """Peak memory of `measure_full_run` as it was before it dropped its
+    throwaway state: the second reset runs while the first state is bound.
+    Two steps, which is where that peak falls."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = runner.reset(0)
+    state = runner.run_step(state, 0)
+    runner.sync(state)
+    state = runner.reset(0)
+    state = runner.run_step(state, 0)
+    runner.sync(state)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    return peak
+
+
+def _payload_bytes(path) -> dict:
+    """Every payload file's bytes; an `.npz` by its members' bytes, since
+    its zip headers hold the time it was written."""
+    import zipfile
+    out = {}
+    for d, _, files in os.walk(path):
+        for f in files:
+            if f == "spec.json":           # provenance: key, upstream, hashes
+                continue
+            full = os.path.join(d, f)
+            rel = os.path.relpath(full, path)
+            if f.endswith(".npz"):
+                with zipfile.ZipFile(full) as z:
+                    for name in z.namelist():
+                        out[f"{rel}/{name}"] = z.read(name)
+            else:
+                with open(full, "rb") as fh:
+                    out[rel] = fh.read()
+    return out
+
+
+def pipeline_parallel_equals_serial(tmp) -> dict:
+    """`workers=4` against the serial run at the reduced size on the card:
+    the same stage keys, profile payload bytes, selection and nuggets."""
+    from repro_torch.pipeline import PipelineConfig
+    cfg = PipelineConfig(arch="qwen3-1.7b", platforms=("f32", "bf16"),
+                         selector="kmeans", selector_args={"seed": 0},
+                         steps=8, seq_len=16, batch=2, interval_steps=2.0,
+                         reduce=True, device="cuda")
+    runs = {}
+    for workers in (0, 4):
+        m, _, _ = _run_pipeline(dataclasses.replace(cfg, workers=workers),
+                                os.path.join(tmp, f"reduced-w{workers}"))
+        assert m["cache_misses"] == len(m["stages"]), _hits(m)
+        runs[workers] = {s["stage"]: s for s in m["stages"]}
+    serial, par = runs[0], runs[4]
+    assert {k: s["key"] for k, s in serial.items()} == \
+        {k: s["key"] for k, s in par.items()}
+    for stage in ("profile", "select", "mark"):
+        a, b = _payload_bytes(serial[stage]["path"]), \
+            _payload_bytes(par[stage]["path"])
+        assert a and a == b, f"{stage} payload differs"
+    return {"stages": len(serial), "equal": True}
+
+
+def phase_pipeline(tmp) -> dict:
+    """The pipeline path: `Pipeline` (profile -> select -> mark -> baseline
+    -> replay -> validate) on full-width qwen3-1.7b, platforms bf16 and f32,
+    `PIPE_RUN`, k-means, in a fresh store: every stage computes, and the
+    profile has steps / interval_steps intervals.  Then a warm rerun (every
+    stage hits and no `Trainer` is built), a selector change (profile and
+    baselines hit; select, mark, replays and validate re-run), full-width
+    mamba2-780m on bf16 (cold), and `workers=4` against serial at the reduced
+    size.  K1, K2 and K3 must launch 0 times: the pipeline trains on the
+    chunked attention and SSD, as the JAX package's does."""
+    from repro_torch.pipeline import PipelineConfig
+    from repro_torch.train import Trainer
+
+    plats = ("bf16", "f32")
+    cfg = PipelineConfig(arch="qwen3-1.7b", platforms=plats,
+                         selector="kmeans", selector_args={"seed": 0},
+                         reduce=False, device="cuda", **PIPE_RUN)
+    store = os.path.join(tmp, "store")
+    n_int = int(PIPE_RUN["steps"] / PIPE_RUN["interval_steps"])
+    t_phase = time.perf_counter()
+    launches = {}
+    # ---- the main path: counters to 0 just before, read just after ---------
+    reset_counters()
+    cold, spy, peak = _run_pipeline(cfg, store)
+    _check_cold(cold, plats, n_int)
+    assert len(spy.built) == len(plats), len(spy.built)
+    init_s = list(spy.init_s)
+    profile_tr = spy.built[0]
+    step_ms = [t * 1e3 for t in profile_tr.step_times]
+
+    warm, spy_w, _ = _run_pipeline(cfg, store)
+    assert all(_hits(warm).values()), _hits(warm)
+    assert spy_w.built == [] and spy_w.init_s == [], len(spy_w.built)
+    warm_built = len(spy_w.built)
+    assert [s["key"] for s in warm["stages"]] == \
+        [s["key"] for s in cold["stages"]]
+    assert warm["metrics"] == cold["metrics"]
+
+    sel = dataclasses.replace(cfg, selector="random",
+                              selector_args={"n_samples": 2, "seed": 0})
+    changed, spy_s, _ = _run_pipeline(sel, store)
+    h = _hits(changed)
+    want = {name: name in ("profile", "baseline@bf16", "baseline@f32")
+            for name in _stage_names(plats)}
+    assert h == want, h
+    launches[cfg.arch] = read_counters()
+
+    ssm_cfg = dataclasses.replace(cfg, arch="mamba2-780m", platforms=("bf16",))
+    reset_counters()
+    ssm, spy_m, ssm_peak = _run_pipeline(ssm_cfg, os.path.join(tmp, "ssm"))
+    launches[ssm_cfg.arch] = read_counters()
+    _check_cold(ssm, ("bf16",), n_int)
+    ssm_tr = spy_m.built[0]
+    ssm_step_ms = [t * 1e3 for t in ssm_tr.step_times]
+    ssm_init_s = list(spy_m.init_s)
+    for arch, n in launches.items():
+        assert n == {k: 0 for k in KERNELS}, (arch, n)
+    del spy, spy_w, spy_s, spy_m, profile_tr, ssm_tr
+    main_path_s = time.perf_counter() - t_phase
+
+    # the peak that `measure_full_run` had before it dropped its throwaway
+    # state, on the f32 platform (f32 activations): the cold run's peak is
+    # the phase's with the drop, the larger of the two the phase's without
+    tr = Trainer(cfg.arch_for("f32"), seq_len=cfg.seq_len, batch=cfg.batch,
+                 seed=cfg.seed, instrument=False, device="cuda")
+    peak_old = _peak_without_the_drop(tr.make_runner())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = dict(
+        arch=cfg.arch, platforms=list(plats), **PIPE_RUN,
+        n_intervals=n_int, stages=len(cold["stages"]),
+        cold=_errors(cold), cold_wall_s=cold["wall_s"],
+        warm_wall_s=warm["wall_s"], warm_trainers_built=warm_built,
+        selector_change={"hits": h, "wall_s": changed["wall_s"],
+                         **_errors(changed)},
+        nuggets_kmeans=len(cold["metrics"]["nugget_variability"]),
+        init_state_s=init_s, profile_step_ms=step_ms,
+        median_step_ms=statistics.median(step_ms[1:]),
+        peak_memory_bytes=peak,
+        peak_memory_bytes_without_the_drop=max(peak, peak_old),
+        full_run_peak_bytes_without_the_drop={"f32": peak_old},
+        mamba2={"arch": ssm_cfg.arch, **_errors(ssm), "wall_s": ssm["wall_s"],
+                "init_state_s": ssm_init_s,
+                "step_ms": ssm_step_ms,
+                "median_step_ms": statistics.median(ssm_step_ms[1:]),
+                "peak_memory_bytes": ssm_peak},
+        launches=launches, main_path_s=main_path_s,
+        seconds=time.perf_counter() - t_phase)
+    emit("pipeline", **out)
+
+    t0 = time.perf_counter()
+    reset_counters()
+    parallel = pipeline_parallel_equals_serial(tmp)
+    assert read_counters() == {k: 0 for k in KERNELS}, read_counters()
+    emit("pipeline_parallel", **parallel, seconds=time.perf_counter() - t0)
+    return launches
+
+
 # weights from seed 0.  The SSM paths prefill 512 steps: two SSD chunks, so
 # the inter-chunk carry is on the path.
 PATHS = (("qwen3-1.7b", 256), ("mamba2-780m", 512), ("zamba2-1.2b", 512))
@@ -1286,7 +1542,8 @@ TRAIN_ARCH = "qwen3-1.7b"      # the train path, after the serving paths
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,serve,profile,train")
+                    default="device,build,kernels,serve,profile,train,"
+                            "pipeline")
     ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
                     help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
@@ -1318,6 +1575,9 @@ def main() -> int:
     if "serve" not in phases:
         if "train" in phases:
             phase_train(get_config(TRAIN_ARCH))
+        if "pipeline" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_pipeline(tmp)
         return 0
     for cfg, prefill_len in paths:
         eng, launches, params = phase_serve(cfg, batch, max_seq, prefill_len,
@@ -1332,7 +1592,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "train" in phases:
         per_path[f"{TRAIN_ARCH}/train"] = phase_train(get_config(TRAIN_ARCH))
-    if checks is None or len(paths) < len(PATHS) or "train" not in phases:
+    if "pipeline" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = phase_pipeline(tmp)
+        for arch, n in launches.items():
+            per_path[f"{arch}/pipeline"] = n
+    if checks is None or len(paths) < len(PATHS) or "train" not in phases \
+            or "pipeline" not in phases:
         return 0
 
     kernels = []

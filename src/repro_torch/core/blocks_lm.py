@@ -154,7 +154,12 @@ def _traced_ratio(cfg_r: ArchConfig) -> float:
     sp = L.map_specs(lambda s: _meta(s.shape, dt).requires_grad_(),
                      m_r.specs())
     bwd = trace_cost(grad, sp, toks)
-    return max(1.0, bwd.ops / max(fwd.ops, 1.0))
+    # a multiple of 1/1024, so that every scaled cost (an integer op count
+    # times the ratio) and every sum of them is exact in float64, as the
+    # reference's integer costs are.  With an inexact ratio a step's running
+    # sum can round just below k * interval_uow, and the interval analysis
+    # then closes that boundary again one block into the next step.
+    return max(1.0, round(bwd.ops / max(fwd.ops, 1.0) * 1024) / 1024)
 
 
 def _train_scale(model: Model) -> float:

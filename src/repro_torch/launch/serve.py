@@ -1,6 +1,6 @@
-# Counterpart of src/repro/launch/serve.py.  Not ported yet: `--profile-out`,
-# `--profile-cache` and `--store`, which need the pipeline's artifact store
-# and the profile store.
+# Counterpart of src/repro/launch/serve.py; nothing of it is left unported.
+# It adds `--device`, and the spec of the profile it persists names the
+# backend and the device, as the pipeline's platform specs do.
 """Serving launcher (batched requests, continuous batching).
 
 Runs on the card; `--device cpu` is the only way onto the CPU.  The first
@@ -27,6 +27,12 @@ def main(argv=None):
     ap.add_argument("--prefill-len", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-out")
+    ap.add_argument("--profile-cache",
+                    help="content-addressed profile cache directory")
+    ap.add_argument("--store",
+                    help="ArtifactStore root: persist the profile as a "
+                         "content-addressed pipeline artifact")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
     ap.add_argument("--no-defer-analysis", action="store_true",
@@ -59,6 +65,18 @@ def main(argv=None):
                             mean_new=24, seed=args.seed)
     stats = eng.run(params, [gen.request(i) for i in range(args.requests)])
     print(json.dumps(stats, indent=1))
+    if args.profile_out or args.profile_cache or args.store:
+        import dataclasses
+
+        from repro_torch.pipeline import persist_profile_cli
+        persist_profile_cli(
+            eng.builder, profile_out=args.profile_out,
+            profile_cache=args.profile_cache, store=args.store,
+            spec={"arch": dataclasses.asdict(cfg), "kind": "serve",
+                  "requests": args.requests, "batch": args.batch,
+                  "max_seq": args.max_seq, "prefill_len": args.prefill_len,
+                  "temperature": args.temperature, "seed": args.seed,
+                  "backend": "torch", "device": args.device})
     return stats
 
 

@@ -1,7 +1,6 @@
-# Counterpart of src/repro/launch/train.py.  Not ported yet: `--profile-out`,
-# `--profile-cache` and `--store`, which need the pipeline's artifact store
-# and the profile store (`repro.pipeline.persist_profile_cli`); they are
-# accepted and raise.
+# Counterpart of src/repro/launch/train.py; nothing of it is left unported.
+# It adds `--device`, and the spec of the profile it persists names the
+# backend and the device, as the pipeline's platform specs do.
 """Training launcher.
 
 Runs on the card; `--device cpu` is the only way onto the CPU.  It trains
@@ -12,7 +11,7 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --steps 6 --seq-len 512 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-        --reduced --steps 6 --device cpu
+        --reduced --steps 6 --device cpu --profile-out /tmp/prof
 """
 from __future__ import annotations
 
@@ -36,22 +35,22 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--no-instrument", action="store_true")
     ap.add_argument("--profile-out")
-    ap.add_argument("--profile-cache")
+    ap.add_argument("--profile-cache",
+                    help="content-addressed profile cache directory: "
+                         "identical (table, interval, step stream) runs "
+                         "load the stored profile instead of re-analyzing")
     ap.add_argument("--no-defer-analysis", action="store_true",
                     help="legacy per-step interval analysis (the default "
                          "defers: log steps during training, batch-analyze "
                          "at the end with the vectorized path)")
-    ap.add_argument("--store")
+    ap.add_argument("--store",
+                    help="ArtifactStore root: persist the profile as a "
+                         "content-addressed pipeline artifact")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
     args = ap.parse_args(argv)
-    if args.profile_out or args.profile_cache or args.store:
-        raise NotImplementedError(
-            "--profile-out, --profile-cache and --store need the pipeline's "
-            "artifact store (repro.pipeline.persist_profile_cli), which is "
-            "not ported yet: see ROADMAP.md, Queue A, item 'pipeline'")
 
     from repro_torch import obs
     obs.log.setup()                       # key=value lines, REPRO_LOG_LEVEL
@@ -86,6 +85,17 @@ def main(argv=None):
         "stragglers": tr.watchdog_report().slow_steps,
     }
     print(json.dumps(out, indent=1))
+    if (args.profile_out or args.profile_cache or args.store) \
+            and not args.no_instrument:
+        from repro_torch.pipeline import persist_profile_cli
+        persist_profile_cli(
+            tr.builder, profile_out=args.profile_out,
+            profile_cache=args.profile_cache, store=args.store,
+            spec={"arch": dataclasses.asdict(cfg), "kind": "train",
+                  "seq_len": args.seq_len, "batch": args.batch,
+                  "steps": args.steps, "seed": args.seed,
+                  "interval_steps": args.interval_steps,
+                  "backend": "torch", "device": args.device})
     return out
 
 

@@ -45,7 +45,11 @@ def test_sources_were_found():
     assert {"engine.py", "flash_attention.py", "flash_decode.py", "build.py",
             "chip_smoke.py", "convert.py", "ssd.py", "ssm.py", "adamw.py",
             "schedule.py", "meter.py", "replay.py", "synthetic.py",
-            "checkpointer.py", "state.py", "trainer.py", "train.py"} <= names
+            "checkpointer.py", "state.py", "trainer.py", "train.py",
+            "kmeans.py", "select.py", "markers.py", "nugget.py",
+            "profile_store.py", "validate.py", "faults.py", "store.py",
+            "journal.py", "scheduler.py", "stages.py", "runtime.py",
+            "pipeline.py", "obs.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
@@ -93,6 +97,16 @@ def test_launcher_raises_without_a_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "qwen3-1.7b", "--reduced", "--requests", "1"])
+
+
+def test_pipeline_launcher_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch.launch import pipeline
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        pipeline.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "2",
+                       "--store", str(tmp_path)])
+    assert not (tmp_path / "profile").exists()
 
 
 def test_train_entry_points_raise_without_a_card():

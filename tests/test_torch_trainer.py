@@ -174,13 +174,14 @@ def test_runner_replays_the_trainer():
     assert measure_full_run(runner, 2) > 0
 
 
-def test_launcher_trains_on_the_cpu(capsys):
+def test_launcher_trains_on_the_cpu(capsys, tmp_path):
+    from repro_torch.core.profile_store import load_profile
     from repro_torch.launch import train
     out = train.main(["--arch", "mamba2-780m", "--reduced", "--steps", "3",
-                      "--seq-len", "16", "--batch", "2", "--device", "cpu"])
+                      "--seq-len", "16", "--batch", "2", "--device", "cpu",
+                      "--profile-out", str(tmp_path / "prof")])
     printed = json.loads(capsys.readouterr().out)
     assert printed["final_loss"] == out["final_loss"]
     assert np.isfinite(printed["final_loss"])
-    with pytest.raises(NotImplementedError, match="persist_profile_cli"):
-        train.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
-                    "--profile-out", "x"])
+    # the profile flags are ported: the run's profile is written
+    assert load_profile(str(tmp_path / "prof")).n_steps == 3
