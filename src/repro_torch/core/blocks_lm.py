@@ -1,6 +1,6 @@
-# Counterpart of src/repro/core/blocks_lm.py: the dense, SSM and hybrid
-# branches, and the train-step scaling.  Not ported yet: the MoE and enc-dec
-# branches with their virtual blocks.
+# Counterpart of src/repro/core/blocks_lm.py: the dense, MoE, SSM and hybrid
+# branches, the MoE's virtual blocks, and the train-step scaling.  Not ported
+# yet: the enc-dec branch.
 """Per-architecture BlockTable construction (the "interval analysis pass").
 
 This is the analogue of the paper's LLVM pass walking the IR: each model
@@ -11,7 +11,9 @@ scale block costs by the traced grad/fwd ratio so the unit of work covers the
 whole executed step (forward hook positions).  The trace runs on
 tensors that are not on the card, so it goes through the kernels' plain
 versions (K3's included, with ``ssm_impl="cuda"``) and never reaches a
-kernel launch.
+kernel launch.  The MoE block is the expert layer alone, without its norm
+and residual, as the reference traces it; its dispatch (argsort,
+searchsorted, the scatter) traces on meta tensors like any other op.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.configs.base import (ArchConfig, ShapeConfig, dtype_of,
 from repro_torch.core.registry import BlockDef, BlockTable, Segment
 from repro_torch.core.unit_of_work import IRCost, trace_cost
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import Model, build_model, cross_entropy
 
@@ -66,14 +69,16 @@ def block_functions(model: Model, shape: ShapeConfig):
         sh_sp = _spec_struct(T.shared_attn_specs(cfg, dims), dt)
         blocks.append(("shared_attn", lambda p, xx, pp: T._shared_attn_block(
             {"shared_attn": p}, cfg, dims, xx, pp)[0], (sh_sp, x, pos)))
+    if cfg.family in ("dense", "moe"):
+        blocks.append(("attn", lambda p, xx, pp: T._attn_block(
+            p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
+            (lp, x, pos)))
     if cfg.family == "dense":
-        blocks += [
-            ("attn", lambda p, xx, pp: T._attn_block(
-                p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
-             (lp, x, pos)),
-            ("mlp", lambda p, xx: T._mlp_block(p, cfg, xx, plus_one=False,
-                                               aux={}), (lp, x)),
-        ]
+        blocks.append(("mlp", lambda p, xx: T._mlp_block(
+            p, cfg, xx, plus_one=False, aux={}), (lp, x)))
+    if cfg.family == "moe":
+        blocks.append(("moe", lambda p, xx: M.moe_mlp(p["moe"], cfg, xx)[0],
+                       (lp, x)))
     return blocks + [("head", head_fn, (head_sp, x, toks))]
 
 
@@ -93,9 +98,9 @@ def build_block_table(model: Model, shape: ShapeConfig,
 
     blocks: List[BlockDef] = []
 
-    def add(name: str) -> int:
-        cost: IRCost = costs[name]
-        blocks.append(BlockDef(name, cost.ops, cost.flops))
+    def add(name: str, **kw) -> int:
+        cost: IRCost = costs.get(name, IRCost(0, 0, 0))
+        blocks.append(BlockDef(name, cost.ops, cost.flops, **kw))
         return len(blocks) - 1
 
     prog: List[Segment] = [Segment((add("embed"),), 1)]
@@ -110,9 +115,17 @@ def build_block_table(model: Model, shape: ShapeConfig,
         if rem:
             prog.append(Segment((i_ssm,), rem))
     else:
-        i_attn, i_mlp = add("attn"), add("mlp")
+        i_attn = add("attn")
+        i_mlp = add("moe" if cfg.family == "moe" else "mlp")
         prog.append(Segment((i_attn, i_mlp), cfg.n_layers))
     prog.append(Segment((add("head"),), 1))
+
+    # ---- virtual (signature-only) blocks -----------------------------------
+    if cfg.family == "moe":
+        for e in range(cfg.moe.n_experts):
+            add(f"expert_tok_{e}", virtual=True, dyn_key="expert_tokens",
+                dyn_index=e)
+        add("dropped_tokens", virtual=True, dyn_key="dropped_tokens")
 
     if unit == "flops":
         blocks = [dataclasses.replace(

@@ -1,13 +1,14 @@
-# Counterpart of src/repro/models/decode.py: the dense, SSM and hybrid
-# families.  Not ported yet: the int8 cache (`_write_kv_quant`) and the MoE
-# branch of the decode step.
+# Counterpart of src/repro/models/decode.py: the dense, MoE, SSM and hybrid
+# families.  Not ported yet: the int8 cache (`_write_kv_quant`).
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
 prefill copies each layer's k/v, SSM state and conv window into the cache,
 the decode step writes one token per row at that row's length and updates
 each layer's SSM state where it lies.  Both return the same cache object for
-the reference's call shape ``logits, cache, aux``.
+the reference's call shape ``logits, cache, aux``; for MoE ``aux`` holds the
+router statistics summed over the layers (a decode step routes each row's
+one token, at the capacity of a sequence of 1).
 
 One deliberate difference: the reference's SSM prefill calls
 ``ssd_chunked`` directly; here it goes through ``cfg.ssm_impl``, so the
@@ -26,9 +27,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
-    ModelDims, _hybrid_groups, _mlp_block, _shared_attn_block, decoder_stack,
-    embed_tokens, layer_params, positions_for, require_ported, rope_tables,
-    unembed,
+    ModelDims, _aux_zero, _ffn, _hybrid_groups, _mlp_block, _shared_attn_block,
+    decoder_stack, embed_tokens, layer_params, positions_for, require_ported,
+    rope_tables, unembed,
 )
 
 
@@ -147,7 +148,7 @@ def lm_decode(params, cfg: ArchConfig, dims: ModelDims, token,
     lengths = cache["length"]                        # [B] int32
     positions = lengths[:, None]
     x = embed_tokens(params, cfg, dims, token)
-    aux: Dict = {}
+    aux = _aux_zero(cfg, x.device)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_decode_layer(params, cfg, i, x, cache)
@@ -182,7 +183,7 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one):
         attn_out = A.out_proj(p["attn"], dims.layout, ctx, dt)
         if cfg.parallel_block:
             h2 = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
-            x = x + (attn_out + L.mlp(p["mlp"], h2, cfg.act, dt))
+            x = x + (attn_out + _ffn(p, cfg, h2, aux=aux))
         else:
             x = x + attn_out
             x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)

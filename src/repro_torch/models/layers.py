@@ -85,6 +85,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every leaf of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tree_index(tree, i: int):
     """Slice ``[i]`` off the leading (stacked layer) axis of every leaf."""
     if isinstance(tree, dict):

@@ -1,7 +1,6 @@
-# Counterpart of src/repro/models/model_zoo.py: the dense, SSM and hybrid
-# decoder LMs.  Not ported yet: `Model.axes`, the dry-run input specs, the
-# MoE, enc-dec and VLM families, and with MoE the router's auxiliary loss in
-# `Model.loss`.
+# Counterpart of src/repro/models/model_zoo.py: the dense, MoE, SSM and
+# hybrid decoder LMs.  Not ported yet: `Model.axes`, the dry-run input specs,
+# and the enc-dec and VLM families.
 """Unified model facade: build an architecture, expose init / loss /
 forward / prefill / decode plus cache construction.
 
@@ -12,7 +11,7 @@ when the model is built and is where ``init`` and ``init_cache`` allocate.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -65,17 +64,23 @@ class Model:
 
     # ---- forward ---------------------------------------------------------
     @torch.no_grad()
-    def forward(self, params, batch: Dict[str, torch.Tensor]):
+    def forward(self, params, batch: Dict[str, torch.Tensor], *,
+                rng: Optional[torch.Generator] = None):
         return T.lm_forward(self.params_on_device(params), self.cfg,
-                            self.dims, batch["tokens"])
+                            self.dims, batch["tokens"], rng=rng)
 
-    def loss(self, params, batch: Dict[str, torch.Tensor]):
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             rng: Optional[torch.Generator] = None):
         """(loss, aux) with ``aux["nll_mean"]``; differentiable (the forward
-        runs in the caller's grad mode, rematerialised under grad)."""
+        runs in the caller's grad mode, rematerialised under grad).  MoE
+        adds the router's auxiliary loss, averaged over the layers.
+        ``rng``: the router jitter's generator (models/moe.py)."""
         logits, aux = T.lm_forward(self.params_on_device(params), self.cfg,
-                                   self.dims, batch["tokens"])
+                                   self.dims, batch["tokens"], rng=rng)
         loss, nll = cross_entropy(logits, batch["labels"],
                                   self.cfg.vocab_size)
+        if "router_aux_loss" in aux:
+            loss = loss + aux["router_aux_loss"] / max(self.cfg.n_layers, 1)
         aux["nll_mean"] = torch.mean(nll)
         return loss, aux
 

@@ -1,0 +1,170 @@
+# Counterpart of src/repro/models/moe.py.  Not ported yet: the `shard(...)`
+# constraints on the expert buffers and the output (identities on one device;
+# ROADMAP.md, Queue A, item 'Distributed').  Router jitter is drawn from a
+# `torch.Generator`, where the reference draws from a threefry key: the
+# values differ, the rule (normal noise times `router_jitter`) does not.
+"""Mixture-of-Experts layer: top-k routing, capacity-bounded sorted dispatch.
+
+Dispatch is *per batch row* (buffers [B, E, C, d]), as in the reference:
+each row's tokens are sorted by expert, stably, so that within an expert the
+earlier (token, k) entries take the slots and the later ones beyond its
+capacity are dropped.  Router statistics (tokens per expert before the drop,
+dropped tokens) are returned as the dynamic Nugget-signature entries.
+
+Ties in the router's top-k go to the lower expert index, as
+``jax.lax.top_k`` gives them: ``torch.topk(..., sorted=True)`` on the CPU
+and on the card returns equal values in index order.  With f32 random
+weights ties do not occur in practice.
+
+The scatter into the expert buffers is ``index_add_``.  A dropped entry adds
+``token * 0`` to its expert's last slot, so the result does not depend on
+the order of the adds unless a token holds inf or NaN.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
+
+
+def moe_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    m = cfg.moe
+    d, fe = cfg.d_model, m.d_expert
+    specs: Dict[str, Any] = {
+        "router": {"kernel": ParamSpec((d, m.n_experts), ("embed", "experts"),
+                                       "scaled")},
+        "wi": ParamSpec((m.n_experts, d, fe), ("experts", "embed", "expert_mlp"),
+                        "scaled"),
+        "wo": ParamSpec((m.n_experts, fe, d), ("experts", "expert_mlp", "embed"),
+                        "scaled"),
+    }
+    if cfg.glu:
+        specs["wg"] = ParamSpec((m.n_experts, d, fe),
+                                ("experts", "embed", "expert_mlp"), "scaled")
+    if m.n_shared_experts:
+        specs["shared"] = L.mlp_specs(d, cfg.d_ff, glu=cfg.glu)
+    return specs
+
+
+def capacity(seq_len: int, m: MoEConfig) -> int:
+    c = int(math.ceil(seq_len * m.top_k / m.n_experts * m.capacity_factor))
+    return max(8, -(-c // 8) * 8)          # padded to 8, as the reference
+
+
+def route(router_params, x: torch.Tensor, m: MoEConfig,
+          rng: Optional[torch.Generator] = None):
+    """x: [B,S,d] -> (expert ids [B,S,k] int64, gates [B,S,k] f32, aux).
+    ``rng``: where the router's jitter is drawn from, when
+    ``m.router_jitter > 0``."""
+    logits = L.dense(router_params, x, torch.float32)        # [B,S,E]
+    if rng is not None and m.router_jitter > 0:
+        noise = torch.randn(logits.shape, generator=rng, dtype=torch.float32,
+                            device=rng.device).to(logits.device)
+        logits = logits + m.router_jitter * noise
+    gates_full = torch.softmax(logits, dim=-1)
+    top_g, top_e = torch.topk(gates_full, m.top_k, dim=-1, sorted=True)
+    top_g = top_g / torch.clamp(torch.sum(top_g, -1, keepdim=True), min=1e-9)
+    # load-balancing aux loss (Switch-style) on the first choice
+    me = torch.mean(gates_full.reshape(-1, m.n_experts), dim=0)
+    onehot = torch.nn.functional.one_hot(top_e[..., 0], m.n_experts).float()
+    ce = torch.mean(onehot.reshape(-1, m.n_experts), dim=0)
+    aux_loss = m.n_experts * torch.sum(me * ce) * m.aux_loss_coef
+    return top_e, top_g, {"router_aux_loss": aux_loss,
+                          "router_logits_max": torch.amax(torch.abs(logits))}
+
+
+def dispatch_indices(top_e: torch.Tensor, k: int, n_experts: int, cap: int):
+    """Sorted capacity-bounded slotting, per batch row.
+
+    top_e: [B, S, k] expert ids -> (slot [B, S*k] int64 in [0, E*cap),
+    keep [B, S*k] bool).  Entries beyond an expert's capacity are dropped
+    (standard capacity-factor semantics); a dropped entry's slot is its
+    expert's last."""
+    b = top_e.shape[0]
+    flat_e = top_e.reshape(b, -1)                              # [B, S*k]
+    n = flat_e.shape[1]
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    experts = torch.arange(n_experts, device=top_e.device,
+                           dtype=sorted_e.dtype).expand(b, n_experts)
+    start = torch.searchsorted(sorted_e.contiguous(), experts.contiguous(),
+                               side="left")                    # [B, E]
+    pos = (torch.arange(n, device=top_e.device)[None]
+           - torch.gather(start, 1, sorted_e))
+    keep_sorted = pos < cap
+    slot_sorted = sorted_e * cap + torch.clamp(pos, max=cap - 1)
+    # unsort back to (token, k) order: the inverse permutation of `order`
+    slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
+    keep = torch.empty_like(keep_sorted).scatter_(1, order, keep_sorted)
+    return slot, keep
+
+
+def expert_mlp(params, cfg: ArchConfig, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' MLPs over their buffers: [B, E, C, d] -> [B, E, C, d].
+    The reference's ``becd,edf->becf`` products, as one batched product per
+    weight over the expert axis."""
+    b, e, c, d = buf.shape
+    dtype = buf.dtype
+    xb = buf.transpose(0, 1).reshape(e, b * c, d)
+    h = torch.bmm(xb, params["wi"].to(dtype))
+    h = L.ACTS[cfg.act](h)
+    if "wg" in params:
+        h = h * torch.bmm(xb, params["wg"].to(dtype))
+    out = torch.bmm(h, params["wo"].to(dtype))                 # [E, B*C, d]
+    return out.reshape(e, b, c, d).transpose(0, 1)
+
+
+def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
+            rng: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    m = cfg.moe
+    b, s, d = x.shape
+    cap = capacity(s, m)
+    dtype = x.dtype
+
+    top_e, top_g, aux = route(params["router"], x, m, rng)
+    slot, keep = dispatch_indices(top_e, m.top_k, m.n_experts, cap)
+
+    # scatter tokens into the expert buffers [B, E*cap, d]
+    tok = torch.repeat_interleave(x, m.top_k, dim=1)           # [B, S*k, d]
+    rows = torch.arange(b, device=x.device)[:, None] * (m.n_experts * cap)
+    buf = torch.zeros((b * m.n_experts * cap, d), dtype=dtype,
+                      device=x.device)
+    wmask = keep[..., None].to(dtype)
+    buf.index_add_(0, (rows + slot).reshape(-1),
+                   (tok * wmask).reshape(-1, d))
+    out_buf = expert_mlp(params, cfg, buf.reshape(b, m.n_experts, cap, d))
+    out_buf = out_buf.reshape(b, m.n_experts * cap, d)
+
+    # gather back and combine with the gates
+    gathered = torch.gather(out_buf, 1, slot[..., None].expand(b, -1, d))
+    gathered = gathered * (keep[..., None].to(dtype) *
+                           top_g.reshape(b, -1)[..., None].to(dtype))
+    y = torch.sum(gathered.reshape(b, s, m.top_k, d), dim=2)
+
+    if m.n_shared_experts:
+        y = y + L.mlp(params["shared"], x, cfg.act, dtype)
+
+    # ---- dynamic Nugget-signature entries -------------------------------
+    flat = top_e.reshape(-1)
+    aux["expert_tokens"] = torch.zeros(
+        (m.n_experts,), dtype=torch.int32, device=x.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))      # [E]
+    aux["dropped_tokens"] = torch.sum(~keep).to(torch.int32)
+    return y, aux
+
+
+def layer_generator(rng: Optional[torch.Generator], layer: int
+                    ) -> Optional[torch.Generator]:
+    """Layer ``layer``'s jitter stream, derived from ``rng``'s seed (the
+    reference splits its key once per layer).  Made afresh on every call, so
+    a rematerialised layer draws the same jitter again."""
+    if rng is None:
+        return None
+    seed = (rng.initial_seed() * 1_000_003 + layer) % (2 ** 63)
+    return torch.Generator(device=rng.device).manual_seed(seed)

@@ -1,9 +1,9 @@
-# Counterpart of src/repro/models/transformer.py: the dense, SSM and hybrid
-# families.  Not ported yet: the MoE layer body and `_aux_zero`'s MoE keys,
-# the VLM patch projection, `remat="selective"` (no config of the repo uses
-# it), and the `shard(...)` constraints (identities on one device) and the
-# `rng` / `patch_embeds` arguments that only those families use.
-"""Decoder-only LM covering the dense, SSM and hybrid families.
+# Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM and
+# hybrid families.  Not ported yet: the VLM patch projection and the
+# `patch_embeds` argument, `remat="selective"` (no config of the repo uses
+# it), and the `shard(...)` constraints (identities on one device).  The
+# router's `rng` is a `torch.Generator` (see models/moe.py).
+"""Decoder-only LM covering the dense, MoE, SSM and hybrid families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
 leading "layer" axis.  The reference scans over that axis; here it is a Python
@@ -11,9 +11,10 @@ loop over the per-layer views that ``split_layers`` makes once per forward.
 With grad enabled each layer (or group of ``remat_group`` layers) is
 rematerialised in the backward, as the reference's ``_maybe_remat`` does.
 Per-layer static attention windows (gemma3's 5:1 local:global) ride along as
-Python ints.  Hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers
-with one SHARED attention block after each group (its parameters live
-outside the stack and are reused).
+Python ints.  An MoE layer's router statistics and auxiliary loss are summed
+over the layers into the forward's ``aux``.  Hybrid (zamba2) runs groups of
+``attn_every`` Mamba2 layers with one SHARED attention block after each group
+(its parameters live outside the stack and are reused).
 """
 from __future__ import annotations
 
@@ -28,13 +29,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import HeadLayout
 from repro_torch.models.layers import ParamSpec
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _ROADMAP_ITEM = {
-    "moe": "MoE", "encdec": "enc-dec, VLM, int8 weights and cache",
+    "encdec": "enc-dec, VLM, int8 weights and cache",
     "vlm": "enc-dec, VLM, int8 weights and cache",
 }
 
@@ -75,12 +77,16 @@ def layer_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
     d = cfg.d_model
     if cfg.family in ("ssm", "hybrid"):
         return {"ssm_norm": L.rmsnorm_specs(d), "ssm": S.mamba2_specs(cfg)}
-    return {
+    specs: Dict[str, Any] = {
         "attn_norm": L.rmsnorm_specs(d),
         "attn": A.attention_specs(cfg.attn, d, dims.layout),
         "mlp_norm": L.rmsnorm_specs(d),
-        "mlp": L.mlp_specs(d, cfg.d_ff, glu=cfg.glu),
     }
+    if cfg.family == "moe":
+        specs["moe"] = M.moe_specs(cfg)
+    else:
+        specs["mlp"] = L.mlp_specs(d, cfg.d_ff, glu=cfg.glu)
+    return specs
 
 
 def shared_attn_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
@@ -184,24 +190,35 @@ def _attn_block(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
     return x + y, kv
 
 
-def _mlp_block(p, cfg, x, *, plus_one: bool, aux: Dict):
+def _ffn(p, cfg, h, *, aux: Dict, rng=None):
+    """The layer's MLP, or its MoE, whose aux entries are added into
+    ``aux`` (``aux[key] = aux.get(key, 0) + val``, as the reference)."""
+    if "moe" not in p:
+        return L.mlp(p["mlp"], h, cfg.act, h.dtype)
+    y, moe_aux = M.moe_mlp(p["moe"], cfg, h, rng=rng)
+    for key, val in moe_aux.items():
+        aux[key] = aux.get(key, 0) + val
+    return y
+
+
+def _mlp_block(p, cfg, x, *, plus_one: bool, aux: Dict, rng=None):
     h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
-    return x + L.mlp(p["mlp"], h, cfg.act, x.dtype)
+    return x + _ffn(p, cfg, h, aux=aux, rng=rng)
 
 
 def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
-                aux=None, rope=None):
+                aux=None, rope=None, rng=None):
     aux = {} if aux is None else aux
     if cfg.parallel_block:
         # PaLM-style parallel residual: y = x + attn(n1(x)) + mlp(n2(x))
         attn_out, kv = _attn_out(p, cfg, dims, x, positions, window,
                                  plus_one=plus_one, rope=rope)
         h2 = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
-        y = L.mlp(p["mlp"], h2, cfg.act, x.dtype)
+        y = _ffn(p, cfg, h2, aux=aux, rng=rng)
         return x + (attn_out + y), kv, aux
     x, kv = _attn_block(p, cfg, dims, x, positions, window,
                         plus_one=plus_one, aux=aux, rope=rope)
-    x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)
+    x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux, rng=rng)
     return x, kv, aux
 
 
@@ -216,10 +233,24 @@ def ssm_layer(p, cfg, x, *, aux=None):
 # ---------------------------------------------------------------------------
 
 
+def _aux_zero(cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    """The aux entries at zero that each layer's are added to."""
+    if cfg.family != "moe":
+        return {}
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {"router_aux_loss": torch.zeros((), **f32),
+            "router_logits_max": torch.zeros((), **f32),
+            "expert_tokens": torch.zeros((cfg.moe.n_experts,), **i32),
+            "dropped_tokens": torch.zeros((), **i32)}
+
+
 def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
-                  *, collect_kv: bool = False, plus_one=False):
+                  *, collect_kv: bool = False, rng=None, plus_one=False):
     """Run all layers full-sequence.  Returns (x, aux, kv or None); kv is a
-    pair of per-layer (hybrid: per-group) lists of [B,S,KVp,hd] tensors."""
+    pair of per-layer (hybrid: per-group) lists of [B,S,KVp,hd] tensors.
+    ``rng``: the router jitter's generator (MoE with ``router_jitter > 0``;
+    each layer draws from its own, derived from it)."""
     require_ported(cfg)
     layers = split_layers(params, cfg)
     if cfg.family == "ssm":
@@ -237,24 +268,34 @@ def decoder_stack(params, cfg: ArchConfig, dims: ModelDims, x, positions,
             and not collect_kv):
         g = 1
 
+    jitter = rng if cfg.moe is not None and cfg.moe.router_jitter > 0 \
+        else None
+
     def body(xc, lo: int):
         # remat GROUPS of g layers: the backward stash holds one residual
-        # per group instead of one per layer
-        kvs = []
+        # per group instead of one per layer.  The group's aux is an output
+        # of the body: a rematerialised forward recomputes it in the
+        # backward and drops it, so nothing is counted twice.
+        kvs, aux_g = [], {}
         for i in range(lo, lo + g):
-            xc, kv, _ = dense_layer(layers[i], cfg, dims, xc, positions,
-                                    windows[i], plus_one=plus_one, rope=rope)
+            xc, kv, aux_g = dense_layer(
+                layers[i], cfg, dims, xc, positions, windows[i],
+                plus_one=plus_one, aux=aux_g, rope=rope,
+                rng=M.layer_generator(jitter, i))
             if collect_kv:
                 kvs.append(kv)
-        return xc, kvs
+        return xc, kvs, aux_g
 
     body = _maybe_remat(body, cfg)
     ks, vs = [], []
+    aux = _aux_zero(cfg, x.device)
     for lo in range(0, cfg.n_layers, g):
-        x, kvs = body(x, lo)
+        x, kvs, aux_g = body(x, lo)
+        for key, val in aux_g.items():
+            aux[key] = aux[key] + val
         ks += [k for k, _ in kvs]
         vs += [v for _, v in kvs]
-    return x, {}, ((ks, vs) if collect_kv else None)
+    return x, aux, ((ks, vs) if collect_kv else None)
 
 
 def _hybrid_groups(cfg: ArchConfig):
@@ -337,13 +378,13 @@ def positions_for(tokens: torch.Tensor) -> torch.Tensor:
                         device=tokens.device)[None].expand(b, s)
 
 
-def lm_forward(params, cfg: ArchConfig, dims: ModelDims,
-               tokens) -> Tuple[torch.Tensor, Dict]:
+def lm_forward(params, cfg: ArchConfig, dims: ModelDims, tokens, *,
+               rng=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits, aux)."""
     plus_one = cfg.name.startswith("gemma")
     positions = positions_for(tokens)
     x = embed_tokens(params, cfg, dims, tokens)
-    x, aux, _ = decoder_stack(params, cfg, dims, x, positions,
+    x, aux, _ = decoder_stack(params, cfg, dims, x, positions, rng=rng,
                               plus_one=plus_one)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
     return unembed(params, cfg, dims, x), aux

@@ -15,7 +15,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.layers import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,23 +36,18 @@ class OptState(NamedTuple):
     master: Any                  # f32 copy (or an empty tensor per leaf)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def init_opt_state(params, cfg: AdamWConfig) -> OptState:
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     if cfg.use_master:
-        master = _map(lambda p: p.detach().float().clone(), params)
+        master = tree_map(lambda p: p.detach().float().clone(), params)
     else:
-        master = _map(lambda p: torch.zeros((0,), device=p.device), params)
+        master = tree_map(lambda p: torch.zeros((0,), device=p.device),
+                          params)
     leaf = tree_leaves(params)[0]
     return OptState(torch.zeros((), dtype=torch.int32, device=leaf.device),
-                    _map(zeros, params), _map(zeros, params), master)
+                    tree_map(zeros, params), tree_map(zeros, params), master)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -69,7 +64,7 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
-    return _map(lambda g: g * scale.to(g.dtype), grads), norm
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()

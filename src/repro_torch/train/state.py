@@ -5,8 +5,11 @@
 """Train state + step construction (the Trainer wires I/O).
 
 ``TrainState.rng`` is the reference's PRNG key carried as an opaque uint32[2]
-numpy array: the dense and SSM losses draw no random numbers, so the port
-only keeps it for the checkpoint's key paths.
+numpy array.  The dense and SSM losses draw no random numbers; an MoE loss
+with ``router_jitter > 0`` draws its jitter from a ``torch.Generator`` seeded
+from ``(rng, step)`` on the model's device (``step_generator``), where the
+reference folds the step into its key: deterministic per (seed, step), with
+other values than threefry's.
 """
 from __future__ import annotations
 
@@ -52,6 +55,15 @@ def init_train_state(model: Model, init: Union[torch.Generator, Dict[str, Any]],
     return TrainState(step, params, opt, rng, meter)
 
 
+def step_generator(rng: np.ndarray, step: int, device) -> torch.Generator:
+    """The step's jitter stream: a generator on ``device`` seeded from the
+    state's key and the step (the reference's ``fold_in(rng, step)``)."""
+    seed = np.random.SeedSequence(
+        [int(x) for x in np.asarray(rng, np.uint32)] + [int(step)]
+    ).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
                     *, table: Optional[BlockTable] = None,
                     microbatch: int = 1,
@@ -64,11 +76,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
     the WorkMeter hook (paper §III-C1) runs inside the step."""
     tick = instrument and table is not None
     inc = static_increment(table, "default", model.device) if tick else None
+    moe = model.cfg.moe
+    jitter = moe is not None and moe.router_jitter > 0
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, rng):
         leaves = tree_leaves(params)
         with torch.enable_grad():
-            loss, aux = model.loss(params, batch)
+            loss, aux = model.loss(params, batch, rng=rng)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
@@ -82,6 +96,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
         return walk(params)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        # reading the step is a device sync: only a loss that draws does it
+        rng = (step_generator(state.rng, int(state.step), model.device)
+               if jitter else None)
         if microbatch > 1:
             b = batch["tokens"].shape[0]
             mb = {k: v.reshape(microbatch, b // microbatch, *v.shape[1:])
@@ -93,7 +110,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
             aux: Dict[str, torch.Tensor] = {}
             for i in range(microbatch):
                 l, a, g = grads_of(state.params,
-                                   {k: v[i] for k, v in mb.items()})
+                                   {k: v[i] for k, v in mb.items()}, rng)
                 for acc, gi in zip(gacc, g):
                     acc.add_(gi.float() / microbatch)
                 del g
@@ -101,7 +118,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
                 aux = {k: aux.get(k, 0) + v for k, v in a.items()}
             grads = gacc
         else:
-            loss, aux, grads = grads_of(state.params, batch)
+            loss, aux, grads = grads_of(state.params, batch, rng)
 
         lr = lr_fn(state.step)
         _, _, om = adamw_update(state.params,

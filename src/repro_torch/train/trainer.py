@@ -1,6 +1,7 @@
 # Counterpart of src/repro/train/trainer.py; nothing of it is left unported
 # but the `donate` switch: the step always updates the state in place, so
-# `make_runner`'s reset builds a fresh state every time.
+# `make_runner`'s reset builds a fresh state every time, from initial
+# parameters drawn once per trainer and kept on the host.
 """Instrumented trainer: the paper's "interval analysis executable" is this
 loop with profiling on.  Features:
 
@@ -10,7 +11,9 @@ loop with profiling on.  Features:
 - atomic async checkpointing + exact resume (stateless data cursor),
 - step watchdog: straggler detection/logging (slow-step quarantine list),
 - replay support: ``make_runner()`` exposes the run as a StepRunner so a
-  replay engine can validate nuggets on this platform.
+  replay engine can validate nuggets on this platform.  Its resets copy the
+  initial parameters, drawn once and kept in host memory, back onto the
+  device instead of drawing them again (the values are the same).
 
 It trains with the chunked attention and SSD (the JAX package's training
 defaults): the CUDA kernels have no backward, so a config that names them
@@ -36,6 +39,7 @@ from repro_torch.core.meter import materialize_dyn, read_meter
 from repro_torch.core.registry import BlockTable
 from repro_torch.core.replay import SimpleRunner, sync_device
 from repro_torch.device import DeviceLike
+from repro_torch.models.layers import tree_map
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedule import constant
@@ -131,12 +135,26 @@ class Trainer:
         # batched end-of-run readback of the device meter (one device sync
         # per run, not per interval); see read_meters in core/meter.py
         self.meter_reading: Optional[Dict[str, np.ndarray]] = None
+        # the initial parameters, drawn at the first init_state, in host
+        # memory (the device holds only the states built from them)
+        self._init_params = None
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        return init_train_state(self.model,
-                                torch.Generator().manual_seed(self.seed),
-                                self.opt_cfg, self.table)
+        """A fresh train state.  The first call draws the parameters from
+        a generator seeded with ``seed`` and keeps a host copy of them; every
+        later call copies that onto the device, which gives the same values
+        as drawing them again."""
+        if self._init_params is None:
+            params = self.model.init(torch.Generator().manual_seed(self.seed))
+            self._init_params = tree_map(
+                lambda t: t.detach().to("cpu", copy=True), params)
+        else:
+            params = tree_map(lambda t: t.to(self.device, copy=True),
+                                 self._init_params)
+        rng = np.asarray([0, self.seed & 0xFFFFFFFF], np.uint32)
+        return init_train_state(self.model, params, self.opt_cfg, self.table,
+                                rng=rng)
 
     def _device_batch(self, step: int) -> Dict[str, torch.Tensor]:
         b = self.data.batch_at(step)

@@ -107,3 +107,36 @@ def test_kernels_refuse_tensors_that_require_grad(smoke):
         {"tokens": toks, "labels": toks})
     assert set(out) == {"flash_attention", "flash_decode", "ssd_intra",
                         "model_loss_cuda"}
+
+
+@pytest.mark.cuda
+def test_moe_serving_path_runs_the_attention_kernels(smoke):
+    """A small MoE (olmoe-1b-7b reduced, head_dim 64, f32) served on the
+    card: every prefill runs K1 and every decode step K2 in each layer, by
+    the launch counters, and the greedy tokens are those of the plain path
+    (`attention_impl="reference"`)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serve import ServeEngine, SyntheticRequests
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                            head_dim=64))
+    gen = SyntheticRequests(cfg.vocab_size, prompt_len=12, mean_new=6, seed=0)
+    outs = {}
+    for impl in ("cuda", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        eng = ServeEngine(c, batch=2, max_seq=64, prefill_len=16,
+                          instrument=False)
+        params = eng.model.init(torch.Generator().manual_seed(0))
+        smoke.reset_counters()
+        eng.run(params, [gen.request(i) for i in range(4)])
+        launches = smoke.read_counters()
+        outs[impl] = {r.req_id: r.output for r in eng.done}
+        if impl == "cuda":
+            want = smoke.expected_launches(
+                c, eng.kinds_log.count("prefill"),
+                eng.kinds_log.count("decode"))
+            assert launches == want and want["flash_decode"] > 0, launches
+        else:
+            assert launches == {k: 0 for k in smoke.KERNELS}, launches
+    assert outs["cuda"] == outs["reference"]

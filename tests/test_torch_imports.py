@@ -49,7 +49,7 @@ def test_sources_were_found():
             "kmeans.py", "select.py", "markers.py", "nugget.py",
             "profile_store.py", "validate.py", "faults.py", "store.py",
             "journal.py", "scheduler.py", "stages.py", "runtime.py",
-            "pipeline.py", "obs.py"} <= names
+            "pipeline.py", "obs.py", "moe.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
@@ -88,6 +88,8 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(2, 1, 8, 1, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(reduced(get_config("olmoe-1b-7b")))
     assert ServeEngine(cfg, device="cpu", instrument=False).device.type == "cpu"
 
 

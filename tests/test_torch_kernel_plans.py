@@ -99,6 +99,11 @@ def test_attention_plan_reaches_the_blocks_it_aims_at(b, s, h, hd):
 def test_attention_plan_at_the_serving_paths():
     qwen3 = attention_plan(1, 256, 16, 128, torch.bfloat16)
     assert (qwen3.bq, qwen3.kv_warps, qwen3.blocks) == (32, 4, 128)
+    # olmoe-1b-7b's prefill (16 q heads as qwen3's, but 16 kv heads: the
+    # plan is by q head, so it is qwen3's)
+    olmoe = attention_plan(1, 256, 16, 128, torch.bfloat16)
+    assert (olmoe.bq, olmoe.kv_warps, olmoe.bk, olmoe.grid) == (32, 4, 32,
+                                                                (8, 16, 1))
     zamba2 = attention_plan(1, 512, 32, 64, torch.bfloat16)
     assert (zamba2.bq, zamba2.kv_warps, zamba2.bk, zamba2.blocks) == (128, 1,
                                                                       64, 128)
@@ -137,6 +142,7 @@ def test_head_blocks_cover_the_group_once(group):
 
 
 @pytest.mark.parametrize("b,kv,s", [(8, 8, 1024), (8, 32, 1024), (8, 8, 8192),
+                                    (8, 16, 1024),
                                     (1, 1, 50), (3, 2, 700), (64, 8, 100),
                                     (1, 8, 4096), (2, 1, 33), (1, 1, 1)])
 def test_split_plan_covers_every_key_once(b, kv, s):
@@ -161,6 +167,8 @@ def test_split_plan_covers_every_key_once(b, kv, s):
 def test_split_plan_at_the_serving_paths():
     assert split_plan(8, 8, 1024, 32) == (8, 128)       # qwen3-1.7b decode
     assert split_plan(8, 32, 1024, 32) == (2, 512)      # zamba2-1.2b decode
+    assert split_plan(8, 16, 1024, 32) == (4, 256)      # olmoe-1b-7b decode
+    assert head_blocks(16 // 16) == (1, 1)              # olmoe: MHA, group 1
     assert split_plan(8, 8, 8192, 32) == (8, 1024)      # the long shape
 
 

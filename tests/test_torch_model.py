@@ -194,8 +194,7 @@ def test_configs_match_the_reference(arch):
         assert a.param_count() == b.param_count()
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-tiny",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
 def test_families_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(reduced(get_config(arch)), device="cpu")

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
@@ -26,7 +27,7 @@ from repro_torch.pipeline.runtime import EXEC_FIELDS
 from test_torch_pipeline_host import payload_bytes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("qwen3-1.7b", "mamba2-780m")
+ARCHS = ("qwen3-1.7b", "mamba2-780m", "olmoe-1b-7b")
 PLATFORMS = ("f32", "bf16")
 RUN = dict(platforms=PLATFORMS, selector="random",
            selector_args={"n_samples": 3, "seed": 0}, steps=8, seq_len=16,
@@ -146,14 +147,30 @@ def test_parallel_run_gives_the_serial_keys_and_bytes(cold, tmp_path):
 def test_profile_matches_the_jax_pipeline(cold, tmp_path):
     """The profile stage of both packages on one config: the same interval
     bounds in step space and the same BBVs, byte for byte; the cold run's
-    stored profile is that profile."""
+    stored profile is the port's own.  An MoE profile's `expert_tok_*` and
+    `dropped_tokens` columns count the routing of the run, which depends on
+    the parameters, so for MoE the port's profile trainer starts from the
+    JAX trainer's initial parameters (converted; the kept initial parameters
+    of `Trainer.init_state`)."""
     arch = cold[0]
     jcfg = JxPipelineConfig(arch=arch, **{k: v for k, v in RUN.items()
                                          if k != "device"})
     jctx = JxPipelineContext(jcfg, None)
     jprof = JxProfileStage().compute(jctx)
-    pctx = PipelineContext(_cfg(arch), ArtifactStore(str(tmp_path)))
-    pprof = ProfileStage().compute(pctx)
+    pctx = PipelineContext(_cfg(arch), ArtifactStore(str(tmp_path / "own")))
+    own = ProfileStage().compute(pctx)
+    pprof = own
+    if arch == "olmoe-1b-7b":
+        from repro_torch.convert import params_from_numpy
+        plat = jcfg.profile_platform_name
+        init = jctx.trainer(plat).init_state().params
+        pctx = PipelineContext(_cfg(arch), ArtifactStore(str(tmp_path)))
+        ptr = pctx.trainer(plat)
+        ptr._init_params = params_from_numpy(
+            jax.tree.map(np.asarray, init), ptr.cfg, device="cpu")
+        pprof = ProfileStage().compute(pctx)
+        virt = pprof.table.virtual_ids()
+        assert len(virt) == 5 and pprof.bbv_matrix()[:, virt[:-1]].min() > 0
     assert pprof.table.names == jprof.table.names
     assert pprof.n_intervals == jprof.n_intervals == 4
     for a, b in zip(pprof.intervals, jprof.intervals):
@@ -164,9 +181,9 @@ def test_profile_matches_the_jax_pipeline(cold, tmp_path):
         assert a.end_marker.hits == b.end_marker.hits
     stored = load_profile(os.path.join(cold[2]["stages"][0]["path"],
                                        "profile"))
-    np.testing.assert_array_equal(stored.bbv_matrix(), pprof.bbv_matrix())
+    np.testing.assert_array_equal(stored.bbv_matrix(), own.bbv_matrix())
     assert [(i.start_step, i.end_step) for i in stored.intervals] == \
-        [(i.start_step, i.end_step) for i in pprof.intervals]
+        [(i.start_step, i.end_step) for i in own.intervals]
 
 
 CONFIG_CASES = [(a, r, p) for a in ARCHS for r in (True, False)
@@ -277,3 +294,30 @@ def test_launcher_manifest_has_the_jax_launchers_schema(tmp_path):
     assert os.path.exists(os.path.join(trace, "trace.json"))
     from repro_torch.launch import obs as obs_cli
     assert obs_cli.main([trace, "--json"]) == 0
+
+
+def test_verify_skills_olmoe_pipeline_command_on_the_cpu(tmp_path, capsys):
+    """The verify skill's first command, an MoE pipeline, on the port with
+    `--device cpu`: cold (every stage computes), warm (every stage hits),
+    and a selector change (profile and baseline hit; select, mark, replay
+    and validate re-run)."""
+    from repro_torch.launch import pipeline as cli
+    argv = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "16",
+            "--seq-len", "16", "--batch", "2", "--n-samples", "4",
+            "--platforms", "f32", "--store", str(tmp_path), "--device", "cpu"]
+    cold = cli.main([*argv, "--selector", "random"])
+    warm = cli.main([*argv, "--selector", "random"])
+    changed = cli.main([*argv, "--selector", "kmeans"])
+    capsys.readouterr()
+    names = ["profile", "select", "mark", "baseline@f32", "replay@f32",
+             "validate"]
+    assert [s["stage"] for s in cold["stages"]] == names
+    assert cold["cache_misses"] == len(names)
+    assert warm["cache_misses"] == 0 and all(hits(warm).values())
+    assert keys(warm) == keys(cold)
+    assert hits(changed) == {n: n in ("profile", "baseline@f32")
+                             for n in names}
+    prof = load_profile(os.path.join(cold["stages"][0]["path"], "profile"))
+    virt = prof.table.virtual_ids()
+    assert prof.table.names[virt[0]] == "expert_tok_0"
+    assert prof.bbv_matrix()[:, virt[:-1]].sum() > 0

@@ -1,7 +1,9 @@
 """The port's train step against the JAX package's, on the CPU at the reduced
 size (f32), from the JAX package's state converted leaf by leaf
 (`convert.train_state_from_numpy`) and the same batches: qwen3-1.7b,
-mamba2-780m and zamba2-1.2b (5 layers: two hybrid groups and a remainder).
+mamba2-780m, zamba2-1.2b (5 layers: two hybrid groups and a remainder),
+olmoe-1b-7b and llama4-scout-17b-a16e (the loss with the router's
+auxiliary term; router jitter 0, as every shipped config has it).
 
 Tolerances.  f32 model math is held to 2e-4 (`tests/test_models.py`'s
 cross-implementation tolerance) relative to max(1, the largest magnitude of
@@ -48,11 +50,19 @@ TOL = 2e-4
 SSM_SPREAD = 10
 ADAM_FLOOR = 1e-7
 LR = 1e-3
-ARCHS = {"qwen3-1.7b": {}, **SSM_ARCHS}
+ARCHS = {"qwen3-1.7b": {}, **SSM_ARCHS, "olmoe-1b-7b": {},
+         "llama4-scout-17b-a16e": {}}
 
 
 def _grad_tol(arch, spread: float) -> float:
-    return TOL if arch == "qwen3-1.7b" else max(TOL, SSM_SPREAD * spread)
+    return TOL if arch not in SSM_ARCHS else max(TOL, SSM_SPREAD * spread)
+
+
+def _scalars(d):
+    """The scalar entries of a step's metrics and aux (the MoE's
+    `expert_tokens` is a vector, held in the MoE tests)."""
+    return {k: float(np.asarray(v)) for k, v in d.items()
+            if np.asarray(v).size == 1}
 
 
 def _run_jax(jm, jstate, n):
@@ -64,7 +74,7 @@ def _run_jax(jm, jstate, n):
         jstate, metrics, aux = step(jstate, jb)
         out.append({"params": _flat(jax.tree.map(np.asarray, jstate.params)),
                     "mu": _flat(jax.tree.map(np.asarray, jstate.opt.mu)),
-                    **{k: float(v) for k, v in (metrics | aux).items()}})
+                    **_scalars(metrics | aux)})
     return out
 
 
@@ -79,7 +89,7 @@ def train_runs(request):
     j0 = j_init_state(jm, jax.random.PRNGKey(0), JAdam(lr=LR))
     ps = train_state_from_numpy(jax.tree.map(np.asarray, j0), pcfg, "cpu")
     jax_runs = _run_jax(jm, j0, 3)
-    jax_ref = (None if arch == "qwen3-1.7b" else _run_jax(
+    jax_ref = (None if arch not in SSM_ARCHS else _run_jax(
         jbuild(dataclasses.replace(jcfg, ssm_impl="reference")), j0, 3))
     pm = build_model(_train_cfg(pcfg), device="cpu")
     step = make_train_step(pm, AdamWConfig(lr=LR), constant(LR),
@@ -93,7 +103,8 @@ def train_runs(request):
                                 for k, v in _flat(ps.params).items()},
                      "mu": {k: np.array(to_np(v))
                             for k, v in _flat(ps.opt.mu).items()},
-                     **{k: v.item() for k, v in (metrics | aux).items()}})
+                     **_scalars({k: v.detach().cpu() for k, v in
+                                 (metrics | aux).items()})})
     return arch, jax_runs, jax_ref, port
 
 

@@ -174,6 +174,42 @@ def test_runner_replays_the_trainer():
     assert measure_full_run(runner, 2) > 0
 
 
+def _state_leaves(state):
+    """Every tensor of a train state by name, and its key."""
+    out = {f"params{k}": v for k, v in _flat(state.params).items()}
+    for name in ("mu", "nu", "master"):
+        out.update({f"{name}{k}": v
+                    for k, v in _flat(getattr(state.opt, name)).items()})
+    out.update({"opt.step": state.opt.step, "step": state.step,
+                **{f"meter/{k}": v for k, v in (state.meter or {}).items()}})
+    return out, state.rng
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_reset_copies_a_state_bit_equal_to_a_fresh_draw(arch):
+    """`init_state` draws the parameters once and keeps them on the host;
+    every later reset copies them in.  The state it builds is, leaf by leaf
+    and bit for bit, the one a fresh draw from the seed builds, also after
+    steps have updated earlier states in place."""
+    cfg = _train_cfg(reduced(get_config(arch)))
+    tr = Trainer(cfg, seq_len=16, batch=2, device="cpu")
+    fresh = init_train_state(tr.model, torch.Generator().manual_seed(0),
+                             tr.opt_cfg, tr.table)
+    want, want_rng = _state_leaves(fresh)
+    tr.run(2, state=tr.init_state())          # the draw, stepped in place
+    runner = tr.make_runner()
+    for _ in range(2):
+        state = runner.reset(0)
+        got, rng = _state_leaves(state)
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+        assert got["params/embed/embedding"].requires_grad
+        np.testing.assert_array_equal(rng, want_rng)
+        runner.run_step(state, 0)             # moves this copy only
+    assert tr._init_params is not None
+
+
 def test_launcher_trains_on_the_cpu(capsys, tmp_path):
     from repro_torch.core.profile_store import load_profile
     from repro_torch.launch import train
