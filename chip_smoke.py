@@ -6,10 +6,13 @@
 Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
 intra-chunk) from the sources in this checkout, holds each kernel against its
 plain PyTorch version on the card (a sweep of small shapes and the serving
-paths' full-width shapes, timed), then serves 16 requests on each of four
-full-width configurations in turn (qwen3-1.7b, mamba2-780m, zamba2-1.2b,
-olmoe-1b-7b; bf16, random weights from seed 0) through the port's
-``ServeEngine``.  For each path it checks by the launch counters that every
+paths' full-width shapes, timed), then serves 16 requests on each of seven
+paths in turn (bf16, random weights from seed 0) through the port's
+``ServeEngine``: qwen3-1.7b, the same with int8 weights (quantized from its
+weights) and an int8 KV cache (``qwen3-1.7b/int8``), mamba2-780m,
+zamba2-1.2b, olmoe-1b-7b, whisper-tiny (its encoder's K1 not causal over
+1500 frames) and internvl2-76b at its published widths with 8 of its 80
+layers.  For each path it checks by the launch counters that every
 prefill went through the kernels of its layers (K1 per attention layer, K3
 per Mamba2 layer) and every decode step through K2 per attention layer,
 holds the kernel path against the plain path on the card (in bf16 and in f32
@@ -40,7 +43,8 @@ gated).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase raises and the run exits
 non-zero; with no CUDA device it exits non-zero at once.
 
-``--phases device,build,kernels`` and ``--paths mamba2-780m`` run a subset
+``--phases device,build,kernels`` and ``--paths mamba2-780m`` (or
+``--paths qwen3-1.7b,qwen3-1.7b/int8``, ``--paths whisper-tiny``) run a subset
 while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
@@ -110,9 +114,10 @@ MOE_F32_REL_TOL = 3e-2
 # it amplifies bf16 rounding.  The limits lie above those runs; the plain
 # path in bf16 activations is the control that must fail them (0.040 to
 # 0.046 on qwen3-1.7b, 0.56 to 0.66 on the SSM paths), or the check could
-# not tell a fault of bf16 size.
+# not tell a fault of bf16 size.  The enc-dec and VLM paths start from the
+# dense limit (their stacks are dense layers; the int8 path is dense).
 PATH_F32_REL_TOL = {"dense": 1e-4, "ssm": 6e-2, "hybrid": 6e-2,
-                    "moe": MOE_F32_REL_TOL}
+                    "moe": MOE_F32_REL_TOL, "encdec": 1e-4, "vlm": 1e-4}
 
 KERNELS = ("flash_attention", "flash_decode", "ssd_intra")
 REPLACES = {
@@ -221,7 +226,8 @@ def sweep_flash_attention(gen) -> dict:
     128) and no kv tile (16, 32, 64); grids that take each plan of the bf16
     kernel (8, 4 and 2 row warps, by `attention_plan`); window edges inside
     a tile, window 0 (every key masked: the mean of V) and soft-capping, in
-    both dtypes; bf16 at every head_dim."""
+    both dtypes; bf16 at every head_dim; whisper-tiny's encoder shape
+    (non-causal, S 1500, H = KV = 6, hd 64) in both dtypes."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -256,6 +262,10 @@ def sweep_flash_attention(gen) -> dict:
     cases.append(((1, 150, 4, 4, 64), f32, True, 40, 20.0, 4.0))
     cases.append(((1, 150, 4, 4, 64), bf16, True, 40, 20.0, 4.0))
     cases.append(((1, 256, 16, 8, 128), bf16, True, None, 30.0, 4.0))
+    # whisper-tiny's encoder: non-causal over 1500 frames, a ragged last tile
+    # whatever the plan's tile (1500 = 23 x 64 + 28)
+    for dtype in (f32, bf16):
+        cases.append(((1, 1500, 6, 6, 64), dtype, False, None, 0.0, 1.0))
     worst: dict = {}
     for (b, s, h, kv, hd), dtype, causal, window, cap, scale in cases:
         q = _randn(gen, (b, s, h, hd), dtype, scale)
@@ -326,9 +336,9 @@ def _bound(n_bytes: float, flops: float, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
-    """K1 in bf16, causal, against its plain version, timed beside the
-    plain version and one library call."""
+def _time_flash_attention(gen, b, s, h, kv, hd, cap, causal=True) -> dict:
+    """K1 in bf16, causal or not, against its plain version, timed beside
+    the plain version and one library call (with the same `is_causal`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_plan,
                                                      flash_attention,
@@ -337,7 +347,7 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
     q = _randn(gen, (b, s, h, hd), dtype)
     k = _randn(gen, (b, s, kv, hd), dtype)
     v = _randn(gen, (b, s, kv, hd), dtype)
-    kw = dict(group=h // kv, causal=True, window=-1, cap=cap)
+    kw = dict(group=h // kv, causal=causal, window=-1, cap=cap)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     worst: dict = {}
@@ -345,7 +355,7 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
            worst)
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,S,hd] views
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                          enable_gqa=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
     del got, want, lib
@@ -353,15 +363,17 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
-    # causal: row i sees i + 1 keys; two products of 2*hd flops per pair
-    flops = 4.0 * hd * b * h * s * (s + 1) / 2
+    # two products of 2*hd flops per (row, key) pair; causal: row i sees
+    # i + 1 keys, else all S
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4.0 * hd * b * h * pairs
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
     plan = attention_plan(b, s, h, hd, dtype)
     return {"shape": {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
-                      "dtype": "bfloat16"},
+                      "dtype": "bfloat16", "causal": causal},
             "plan": {"bq": plan.bq, "bk": plan.bk, "warps": plan.warps,
                      "kv_warps": plan.kv_warps, "blocks": plan.blocks,
                      "smem_bytes": plan.smem_bytes},
@@ -372,11 +384,13 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap) -> dict:
             "bytes": n_bytes, "flops": flops}
 
 
-def full_width_flash_attention(gen, cfg, prefill_len: int) -> dict:
-    """K1 at the serving path's prefill shape."""
+def full_width_flash_attention(gen, cfg, prefill_len: int,
+                               causal: bool = True) -> dict:
+    """K1 at the serving path's prefill shape (``prefill_len`` rows; the
+    enc-dec encoder's: ``n_frames`` rows, not causal)."""
     a = cfg.attn
     return _time_flash_attention(gen, 1, prefill_len, a.n_heads, a.n_kv_heads,
-                                 a.head_dim, a.softcap)
+                                 a.head_dim, a.softcap, causal)
 
 
 def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
@@ -671,26 +685,36 @@ def full_width_ssd(gen, cfg, prefill_len: int) -> dict:
 
 def phase_kernels(paths, batch, max_seq) -> dict:
     """Every kernel over its sweep, then at the full-width shapes that the
-    serving paths give it, each timed, and the attention kernels at one long
-    shape each (at the first dense path's widths)."""
+    serving paths give it, each timed (the enc-dec path's K1 at its encoder
+    shape too; a quantized path takes its base path's shapes, K2 reading
+    the dequantized bf16 cache), and the attention kernels at one long shape
+    each (at the first dense path's widths)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {name: {"full_width": []} for name in KERNELS}
     out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
     out["flash_decode"]["sweep"] = sweep_flash_decode(gen)
     out["ssd_intra"]["sweep"] = sweep_ssd(gen)
-    for cfg, prefill_len in paths:
-        if cfg.family in ("dense", "moe", "hybrid"):
-            n_attn = n_attention_layers(cfg)
+    for path, cfg, prefill_len in paths:
+        if "/" in path:                 # a variant: its base path's shapes
+            continue
+        n_attn = n_attention_layers(cfg)
+        if cfg.family == "encdec":
             out["flash_attention"]["full_width"].append(dict(
-                arch=cfg.name,
+                arch=f"{path} encoder", **full_width_flash_attention(
+                    gen, cfg, cfg.n_frames, causal=False)))
+        if n_attn:
+            out["flash_attention"]["full_width"].append(dict(
+                arch=path,
                 **full_width_flash_attention(gen, cfg, prefill_len)))
             out["flash_decode"]["full_width"].append(dict(
-                arch=cfg.name, **full_width_flash_decode(
+                arch=path, **full_width_flash_decode(
                     gen, cfg, batch, max_seq, prefill_len, n_attn)))
         if cfg.family in ("ssm", "hybrid"):
             out["ssd_intra"]["full_width"].append(
                 full_width_ssd(gen, cfg, prefill_len))
-    dense = [cfg for cfg, _ in paths if cfg.family == "dense"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    dense = [cfg for _, cfg, _ in paths if cfg.family == "dense"]
     if dense:
         for name, res in long_shapes(gen, dense[0]).items():
             out[name]["long"] = res
@@ -715,11 +739,11 @@ def phase_plans(paths, batch, max_seq) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtype = torch.bfloat16
     tile = build.load().rt_flash_decode_tile()
-    for cfg, prefill_len in paths:
+    for path, cfg, prefill_len in paths:
         if cfg.family in ("ssm", "hybrid"):
-            emit("plans", arch=cfg.name, ssd_intra=plans_ssd(gen, cfg,
-                                                             prefill_len))
-        if cfg.family not in ("dense", "moe", "hybrid"):
+            emit("plans", arch=path, ssd_intra=plans_ssd(gen, cfg,
+                                                         prefill_len))
+        if not n_attention_layers(cfg) or "/" in path:
             continue
         a = cfg.attn
         h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
@@ -757,7 +781,7 @@ def phase_plans(paths, batch, max_seq) -> None:
             _check("flash_decode", call(0), want, dtype, ("plans", n), {})
             k2[n] = time_ms(call, inner=n_layers)
         del q, kc, vc
-        emit("plans", arch=cfg.name,
+        emit("plans", arch=path,
              flash_attention={"shape": [1, prefill_len, h, kv, hd],
                               "chosen_rows": fa.attention_plan(
                                   1, prefill_len, h, hd, dtype).bq // 16,
@@ -814,31 +838,73 @@ def read_counters() -> dict:
 
 
 def n_attention_layers(cfg) -> int:
-    """The attention layers of a step (the hybrid's attention is one shared
-    block per group)."""
-    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+    """The cached (decoder) self-attention layers of a step: the hybrid's
+    attention is one shared block per group, the enc-dec family's are its
+    decoder's (the encoder's run in the prefill only)."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+            "encdec": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
 
 
 def expected_launches(cfg, prefills: int, decodes: int) -> dict:
     """Launches of each kernel on a serving run: K1 per attention layer of a
-    prefill, K2 per attention layer of a decode step, K3 per Mamba2 layer of
-    a prefill."""
+    prefill (the enc-dec family's encoder layers, non-causal, included), K2
+    per attention layer of a decode step, K3 per Mamba2 layer of a
+    prefill."""
     n_attn = n_attention_layers(cfg)
+    n_enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
     n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    return {"flash_attention": prefills * n_attn,
+    return {"flash_attention": prefills * (n_enc + n_attn),
             "flash_decode": decodes * n_attn,
             "ssd_intra": prefills * n_ssm}
 
 
-def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
+def serve_params(cfg, given):
+    """The path's random weights, seed 0, drawn on `SERVE_INIT_DEVICE`'s
+    generator; a quantized path's are `quantize_params` of its base path's
+    (``given``, when the base path ran just before; else drawn here)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    if given is not None:
+        return given["params"]
+    base = dataclasses.replace(cfg, weight_quant="none", cache_quant="none")
+    model = build_model(base)
+    params = model.init(torch.Generator(
+        device=SERVE_INIT_DEVICE.get(cfg.name, "cpu")).manual_seed(0))
+    if cfg.weight_quant == "none":
+        return params
+    quant = L.quantize_params(params, model.axes())
+    del params
+    return quant
+
+
+def path_inputs(cfg, prompt):
+    """The checks' batch: the prompt of request 0 and its reverse, with
+    random frames (enc-dec) or patches (VLM) from a seed, f32."""
+    toks = torch.from_numpy(prompt)[None].to("cuda")
+    batch_in = {"tokens": torch.cat([toks, toks.flip(1)]).long()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if cfg.family == "encdec":
+        batch_in["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                         generator=gen, device="cuda")
+    if cfg.n_patches:
+        batch_in["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                          generator=gen, device="cuda")
+    return batch_in
+
+
+def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
+                given=None):
+    """Serve 16 requests on the path; returns (engine, launches, params,
+    the kernel path's and the f32 plain path's logits on the checks'
+    batch).  ``given``: for a quantized path, its parameters and its base
+    path's logits."""
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve import ServeEngine, SyntheticRequests
 
     t0 = time.perf_counter()
     model = build_model(cfg)                               # on the card
-    params = model.init(torch.Generator(
-        device=SERVE_INIT_DEVICE.get(cfg.name, "cpu")).manual_seed(0))
+    params = serve_params(cfg, given)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = model.param_count(params)
@@ -855,6 +921,8 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
     warm.run(params, requests()[:2])
     del warm
 
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, batch=batch, max_seq=max_seq,
                       prefill_len=prefill_len)
@@ -872,10 +940,18 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
     outputs = {r.req_id: r.output for r in eng.done}
     for out in outputs.values():
         assert len(out) >= 2 and all(0 <= t < cfg.vocab_size for t in out)
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
-         params_analytic=cfg.param_count(), init_seconds=init_s,
-         init_generator=SERVE_INIT_DEVICE.get(cfg.name, "cpu"), batch=batch,
-         max_seq=max_seq,
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name)
+    reduced = ({"n_layers": [full.n_layers, cfg.n_layers]}
+               if cfg.n_layers != full.n_layers else None)
+    emit("serve", arch=path, n_layers=cfg.n_layers, reduced=reduced,
+         weight_quant=cfg.weight_quant, cache_quant=cfg.cache_quant,
+         params=n_params, params_analytic=cfg.param_count(),
+         init_seconds=init_s,
+         init_generator=(f"quantize_params of {path.split('/')[0]}'s"
+                         if cfg.weight_quant != "none"
+                         else SERVE_INIT_DEVICE.get(cfg.name, "cpu")),
+         batch=batch, max_seq=max_seq,
          prefill_len=prefill_len, stats=stats, prefills=prefills,
          decode_iterations=decodes, launches=launches,
          peak_memory_bytes=peak)
@@ -909,7 +985,9 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
     # attention block through K1 against its plain version
     # (`first_attention_vs_plain`).  Beside them, the share of (token,
     # layer) routing decisions that differ between two paths, in all and by
-    # layer.
+    # layer.  The enc-dec, VLM and int8 paths are held by the whole-model
+    # rules and one layer deep (for the enc-dec family, the encoder's first
+    # block: K1 not causal over the frames).
     ref_cfg = dataclasses.replace(cfg, attention_impl="reference",
                                   ssm_impl="chunked")
     models = {"kernel": model, "plain": build_model(ref_cfg),
@@ -917,8 +995,7 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
                   ref_cfg, compute_dtype="float32")),
               "kernel_f32": build_model(dataclasses.replace(
                   cfg, compute_dtype="float32"))}
-    toks = torch.from_numpy(requests()[0].prompt)[None].to("cuda")
-    batch_in = {"tokens": torch.cat([toks, toks.flip(1)]).long()}
+    batch_in = path_inputs(cfg, requests()[0].prompt)
     logits, routes = path_logits(models, params, batch_in, max_seq)
     errs = {}
     for what in ("prefill_logits", "decode_logits"):
@@ -942,12 +1019,26 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
         assert e["f32_kernel_vs_plain"] <= e["f32_limit"], (what, e)
         # the bf16 control: bf16 activations alone fail the f32 limit
         assert e["plain_vs_f32"] > e["f32_limit"], (what, e)
+        if given is not None:
+            # int8 weights and cache against the base path's bf16 weights,
+            # reported (the reference's rule, < 0.08, is held on the CPU at
+            # the reduced size): in bf16 activations (the kernel paths), in
+            # f32 activations (the plain paths: quantization alone), and,
+            # beside them, what bf16 activations alone move the base path
+            base = given["logits"]
+            e["mean_rel_vs_base_path"] = mean_rel(logits["kernel"][what],
+                                                  base["kernel"][what])
+            e["mean_rel_vs_base_path_f32"] = mean_rel(logits["f32"][what],
+                                                      base["f32"][what])
+            e["base_path_bf16_vs_f32_mean_rel"] = mean_rel(
+                base["kernel"][what], base["f32"][what])
         errs[what] = e
+    kept = {name: logits[name] for name in ("kernel", "f32")}
     del logits, models
     first = None
     if cfg.family in ("ssm", "hybrid"):
         first = first_layer_vs_plain(cfg, model, params, batch_in)
-    elif cfg.family == "moe":
+    elif cfg.family in ("moe", "encdec", "vlm") or cfg.weight_quant != "none":
         first = first_attention_vs_plain(cfg, model, params, batch_in)
 
     ref_eng = ServeEngine(ref_cfg, batch=batch, max_seq=max_seq,
@@ -958,10 +1049,16 @@ def phase_serve(cfg, batch, max_seq, prefill_len, n_requests):
         out = outputs[r.req_id]
         total += max(len(out), len(r.output))
         same += sum(a == b for a, b in zip(out, r.output))
-    emit("serve_vs_plain", logits_max_abs_err=errs,
+    emit("serve_vs_plain", arch=path, logits_max_abs_err=errs,
          greedy_tokens_agree=same / max(total, 1), tokens_compared=total,
          first_layer=first, plain_path_stats=ref_stats)
-    return eng, launches, params
+    return eng, launches, params, kept
+
+
+def mean_rel(a, b) -> float:
+    """mean |a - b| / mean |b|, the reference's measure for int8 weights
+    (tests/test_perf_features.py)."""
+    return ((a - b).abs().mean() / b.abs().mean()).item()
 
 
 # the compared pairs of paths: (kernel or plain) x (bf16 or f32 activations)
@@ -1034,17 +1131,35 @@ def first_attention_vs_plain(cfg, model, params, batch_in) -> dict:
     attention, output projection) through K1 (`attention_impl="cuda"`) and
     through the plain attention, in bf16 from the same embedding: held to
     2e-2 of its largest magnitude (a few bf16 steps), as the SSM paths'
-    first block.  One layer deep, the MoE stack's amplification of
-    rounding (see `phase_serve`) cannot hide a fault of the kernel."""
+    first block.  One layer deep, a random-weight stack's amplification of
+    rounding (see `phase_serve`) cannot hide a fault of the kernel.  For the
+    enc-dec family it is the encoder's first block (layer norm, projections,
+    K1 not causal over the frames, output projection); for the VLM the
+    embedding holds the projected patches."""
+    from repro_torch.configs.base import dtype_of
+    from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as T
-    p = T.layer_params(params, cfg, 0)
-    x = T.embed_tokens(params, cfg, model.dims, batch_in["tokens"])
-    pos = T.positions_for(batch_in["tokens"])
+    from repro_torch.models.layers import tree_index
     out = {}
-    for impl in ("cuda", "reference"):
-        c = dataclasses.replace(cfg, attention_impl=impl)
-        out[impl] = T._attn_block(p, c, model.dims, x, pos, -1,
-                                  plus_one=False, aux={})[0].float()
+    if cfg.family == "encdec":
+        dt = dtype_of(cfg.compute_dtype)
+        p = tree_index(params["enc_layers"], 0)
+        x = batch_in["frames"].to(dt) + params["enc_pos"].to(dt)[None]
+        h = ED.layernorm(p["attn_norm"], x)
+        pos = T.positions_for(x[..., 0])
+        for impl in ("cuda", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            out[impl] = ED._self_attn(p["attn"], c, model.dims, h, pos,
+                                      causal=False, dt=dt)[0].float()
+    else:
+        p = T.layer_params(params, cfg, 0)
+        x = T.embed_tokens(params, cfg, model.dims, batch_in["tokens"],
+                           batch_in.get("patches"))
+        pos = T.positions_for(batch_in["tokens"])
+        for impl in ("cuda", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            out[impl] = T._attn_block(p, c, model.dims, x, pos, -1,
+                                      plus_one=False, aux={})[0].float()
     g, w = out["cuda"], out["reference"]
     assert bool(torch.isfinite(g).all())
     scale = w.abs().max().item()
@@ -1091,7 +1206,7 @@ def first_layer_vs_plain(cfg, model, params, batch_in) -> dict:
     return out
 
 
-def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
+def phase_trace(path, eng, params, prefill_len: int, steps: int = 5) -> None:
     """Optional (`--phases ...,trace`): where a decode step's and a prefill's
     time goes.  Host time per call (host clock around calls that end in a
     synchronise), device-busy time (sum of kernel times from torch.profiler)
@@ -1108,7 +1223,7 @@ def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
         model.decode_step(params, tok, eng.cache)
 
     def prefill():
-        model.prefill(params, {"tokens": toks}, pre_cache)
+        model.prefill(params, {"tokens": toks, **eng.stub_inputs}, pre_cache)
 
     out = {}
     for name, fn in (("decode_step", decode), ("prefill", prefill)):
@@ -1139,14 +1254,15 @@ def phase_trace(eng, params, prefill_len: int, steps: int = 5) -> None:
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:70], "ms": ms, "calls": n}
                     for k, ms, n in rows[:8]]}
-    emit("trace", arch=eng.cfg.name, steps=steps, **out)
+    emit("trace", arch=path, steps=steps, **out)
 
 
 BLOCKS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe", "dropped_tokens"),
-          "ssm": ("mamba",), "hybrid": ("mamba", "shared_attn")}
+          "ssm": ("mamba",), "hybrid": ("mamba", "shared_attn"),
+          "vlm": ("attn", "mlp"), "encdec": ("enc_layer", "dec_layer")}
 
 
-def phase_profile(eng) -> None:
+def phase_profile(path, eng) -> None:
     """The interval profile of the serving run.  For the SSM families also
     the traced FLOPs of a prefill's mamba block through the kernel path
     (`ssm_impl="cuda"`) over those through `ssd_chunked`, which the
@@ -1172,7 +1288,7 @@ def phase_profile(eng) -> None:
         extra["mamba_prefill_traced_flops"] = flops
         extra["mamba_flops_ratio_cuda_vs_chunked"] = \
             flops["cuda"] / flops["chunked"]
-    emit("profile", arch=eng.cfg.name, n_intervals=prof.n_intervals,
+    emit("profile", arch=path, n_intervals=prof.n_intervals,
          blocks=list(names), **extra)
 
 
@@ -1782,14 +1898,37 @@ def phase_pipeline(tmp) -> dict:
 
 
 # weights from seed 0.  The SSM paths prefill 512 steps: two SSD chunks, so
-# the inter-chunk carry is on the path.
-PATHS = (("qwen3-1.7b", 256), ("mamba2-780m", 512), ("zamba2-1.2b", 512),
-         ("olmoe-1b-7b", 256))
+# the inter-chunk carry is on the path.  "qwen3-1.7b/int8" is qwen3-1.7b with
+# int8 weights (`quantize_params` of the path before's) and an int8 KV cache.
+# whisper-tiny's prefill runs its encoder over 1500 frames (K1 not causal)
+# and 64 prompt tokens; internvl2-76b's 512 positions start with its 256
+# patch positions.
+PATHS = (("qwen3-1.7b", 256), ("qwen3-1.7b/int8", 256), ("mamba2-780m", 512),
+         ("zamba2-1.2b", 512), ("olmoe-1b-7b", 256), ("whisper-tiny", 64),
+         ("internvl2-76b", 512))
+VARIANTS = {"int8": dict(weight_quant="int8", cache_quant="int8")}
+# Depth cuts (layers served): internvl2-76b's 80 layers are 141 GB of bf16
+# weights, more than the card holds; 8 layers at its published widths are
+# 9.0 B parameters.
+SERVE_DEPTH = {"internvl2-76b": 8}
 # Where a path's random weights are drawn (the generator's device; seed 0
 # either way).  olmoe-1b-7b's 6.92 B values take 50.5 to 67.1 s on the CPU
 # generator (three runs on one H100's host), more than the rest of its
-# path, so they are drawn on the card.
-SERVE_INIT_DEVICE = {"olmoe-1b-7b": "cuda"}
+# path, so they are drawn on the card, as internvl2-76b's 9.0 B are.
+SERVE_INIT_DEVICE = {"olmoe-1b-7b": "cuda", "internvl2-76b": "cuda"}
+
+
+def path_config(path: str):
+    """The config of a serving path: an arch, a variant after a slash, the
+    depth cut of `SERVE_DEPTH`."""
+    from repro_torch.configs import get_config
+    arch, _, variant = path.partition("/")
+    cfg = get_config(arch)
+    if variant:
+        cfg = dataclasses.replace(cfg, **VARIANTS[variant])
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+    return cfg
 TRAIN_ARCH = "qwen3-1.7b"      # the train path, after the serving paths
 
 
@@ -1815,7 +1954,7 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     chosen = args.paths.split(",")
-    paths = [(get_config(a), pl) for a, pl in PATHS if a in chosen]
+    paths = [(a, path_config(a), pl) for a, pl in PATHS if a in chosen]
     batch, max_seq, n_requests = 8, 1024, 16
 
     dev = phase_device()
@@ -1834,15 +1973,23 @@ def main() -> int:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_pipeline(tmp)
         return 0
-    for cfg, prefill_len in paths:
-        eng, launches, params = phase_serve(cfg, batch, max_seq, prefill_len,
-                                            n_requests)
-        per_path[cfg.name] = launches
+    carry = {}      # a quantized path's inputs, from its base path's run
+    for path, cfg, prefill_len in paths:
+        eng, launches, params, logits = phase_serve(
+            path, cfg, batch, max_seq, prefill_len, n_requests,
+            given=carry.pop(path, None))
+        per_path[path] = launches
         if "trace" in phases:
-            phase_trace(eng, params, prefill_len)
+            phase_trace(path, eng, params, prefill_len)
         if "profile" in phases:
-            phase_profile(eng)
-        del eng, params
+            phase_profile(path, eng)
+        for variant in VARIANTS:
+            if f"{path}/{variant}" in chosen:
+                from repro_torch.models.layers import quantize_params
+                carry[f"{path}/{variant}"] = {
+                    "params": quantize_params(params, eng.model.axes()),
+                    "logits": logits}
+        del eng, params, logits
         gc.collect()
         torch.cuda.empty_cache()
     if "train" in phases:

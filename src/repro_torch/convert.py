@@ -4,7 +4,10 @@ into the port's (no counterpart in ``src/repro``).
 The two packages share one parameter layout, so the conversion is leaf by
 leaf: every key and shape is checked against the port's specs and anything
 unknown or missing raises.  bf16 leaves arrive as ``ml_dtypes`` arrays and go
-through float32, which is exact.  The module imports no JAX: a caller turns
+through float32, which is exact.  A spec with its own dtype (int8 weights:
+the int8 payload and its f32 scale) keeps it whatever the model's dtype; the
+enc-dec family's ``enc_layers``/``dec_layers`` stacks and ``enc_pos``/
+``dec_pos`` tables carry over like any other leaf.  The module imports no JAX: a caller turns
 the pytree into numpy first (``jax.tree.map(np.asarray, params)``).
 
 A train state carries over whole: parameters, the optimizer's step, moments
@@ -23,6 +26,7 @@ from repro_torch.core.meter import meter_from_limbs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.model_zoo import model_specs
 
 
 def _leaf(path: str, arr, spec: L.ParamSpec, device, dtype) -> torch.Tensor:
@@ -33,7 +37,7 @@ def _leaf(path: str, arr, spec: L.ParamSpec, device, dtype) -> torch.Tensor:
     if a.dtype.kind not in "fiu":          # ml_dtypes bfloat16 has kind 'V'
         a = a.astype(np.float32)
     t = torch.from_numpy(np.array(a))         # a copy: the source may be read-only
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=L.spec_dtype(spec) or dtype)
 
 
 def _walk(path: str, tree, specs, device, dtype):
@@ -62,7 +66,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     dicts of numpy arrays.  ``dtype=None`` keeps ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype) if dtype is None else dtype
-    specs = T.lm_specs(cfg, T.ModelDims.make(cfg, 1))
+    specs = model_specs(cfg, T.ModelDims.make(cfg, 1))
     return _walk("", tree, specs, dev, dtype)
 
 
@@ -88,7 +92,7 @@ def train_state_from_numpy(state, cfg: ArchConfig, device: DeviceLike = None):
     has_master = np.asarray(L.tree_leaves(opt.master)[0]).size > 0
     master = (params_from_numpy(opt.master, cfg, dev, f32) if has_master
               else L.map_specs(lambda s: torch.zeros((0,), device=dev),
-                               T.lm_specs(cfg, T.ModelDims.make(cfg, 1))))
+                               model_specs(cfg, T.ModelDims.make(cfg, 1))))
 
     def scalar(a):
         return torch.tensor(int(np.asarray(a)), dtype=torch.int32).to(dev)

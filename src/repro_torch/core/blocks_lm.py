@@ -1,6 +1,6 @@
-# Counterpart of src/repro/core/blocks_lm.py: the dense, MoE, SSM and hybrid
-# branches, the MoE's virtual blocks, and the train-step scaling.  Not ported
-# yet: the enc-dec branch.
+# Counterpart of src/repro/core/blocks_lm.py; nothing of it is left
+# unported.  The train-step scaling is a traced ratio where the reference's
+# always falls back to 3.0 (ROADMAP.md, faults of the reference).
 """Per-architecture BlockTable construction (the "interval analysis pass").
 
 This is the analogue of the paper's LLVM pass walking the IR: each model
@@ -13,7 +13,12 @@ tensors that are not on the card, so it goes through the kernels' plain
 versions (K3's included, with ``ssm_impl="cuda"``) and never reaches a
 kernel launch.  The MoE block is the expert layer alone, without its norm
 and residual, as the reference traces it; its dispatch (argsort,
-searchsorted, the scatter) traces on meta tensors like any other op.
+searchsorted, the scatter) traces on meta tensors like any other op.  The
+enc-dec family has an ``enc_layer`` block (over ``n_frames`` positions,
+non-causal) and a ``dec_layer`` block (causal self-attention,
+cross-attention to an encoder output of ``n_frames`` positions, MLP); the
+VLM's blocks are the dense family's (the patch projection is not traced, as
+in the reference).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.configs.base import (ArchConfig, ShapeConfig, dtype_of,
                                       reduced)
 from repro_torch.core.registry import BlockDef, BlockTable, Segment
 from repro_torch.core.unit_of_work import IRCost, trace_cost
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
@@ -52,7 +58,6 @@ def block_functions(model: Model, shape: ShapeConfig):
     x = _meta((b, s, d), dt)
     pos = _meta((b, s), torch.int32)
     toks = _meta((b, s), torch.int32)
-    lp = _spec_struct(T.layer_specs(cfg, dims), dt)
     emb_sp = {"embedding": _meta((dims.vocab_pad, d), dt)}
     head_sp = {"norm": {"scale": _meta((d,), dt)},
                "head": _meta((d, dims.vocab_pad), dt)}
@@ -62,6 +67,17 @@ def block_functions(model: Model, shape: ShapeConfig):
         return cross_entropy(h.to(dt) @ p["head"], lbl, cfg.vocab_size)[0]
 
     blocks = [("embed", lambda p, t: L.embed_lookup(p, t, dt), (emb_sp, toks))]
+    if cfg.family == "encdec":
+        xe = _meta((b, cfg.n_frames, d), dt)
+        pe = _meta((b, cfg.n_frames), torch.int32)
+        enc_sp = _spec_struct(ED._enc_layer_specs(cfg, dims), dt)
+        dec_sp = _spec_struct(ED._dec_layer_specs(cfg, dims), dt)
+        blocks.append(("enc_layer", lambda p, xx, pp: ED.enc_layer(
+            p, cfg, dims, xx, pp, dt), (enc_sp, xe, pe)))
+        blocks.append(("dec_layer", lambda p, xx, pp, eo: ED.dec_layer(
+            p, cfg, dims, xx, pp, eo, dt)[0], (dec_sp, x, pos, xe)))
+        return blocks + [("head", head_fn, (head_sp, x, toks))]
+    lp = _spec_struct(T.layer_specs(cfg, dims), dt)
     if cfg.family in ("ssm", "hybrid"):
         blocks.append(("mamba", lambda p, xx: T.ssm_layer(p, cfg, xx)[0],
                        (lp, x)))
@@ -69,11 +85,11 @@ def block_functions(model: Model, shape: ShapeConfig):
         sh_sp = _spec_struct(T.shared_attn_specs(cfg, dims), dt)
         blocks.append(("shared_attn", lambda p, xx, pp: T._shared_attn_block(
             {"shared_attn": p}, cfg, dims, xx, pp)[0], (sh_sp, x, pos)))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         blocks.append(("attn", lambda p, xx, pp: T._attn_block(
             p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
             (lp, x, pos)))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         blocks.append(("mlp", lambda p, xx: T._mlp_block(
             p, cfg, xx, plus_one=False, aux={}), (lp, x)))
     if cfg.family == "moe":
@@ -114,6 +130,9 @@ def build_block_table(model: Model, shape: ShapeConfig,
             prog.append(Segment((i_sh,), 1))
         if rem:
             prog.append(Segment((i_ssm,), rem))
+    elif cfg.family == "encdec":
+        prog.append(Segment((add("enc_layer"),), cfg.n_enc_layers))
+        prog.append(Segment((add("dec_layer"),), cfg.n_layers))
     else:
         i_attn = add("attn")
         i_mlp = add("moe" if cfg.family == "moe" else "mlp")
@@ -155,9 +174,16 @@ def _traced_ratio(cfg_r: ArchConfig) -> float:
     m_r = build_model(cfg_r, device="meta")
     dt = dtype_of(cfg_r.param_dtype)
     toks = _meta((2, 16), torch.int64)
+    stubs = {}
+    if cfg_r.family == "encdec":
+        stubs["frames"] = _meta((2, cfg_r.n_frames, cfg_r.d_model),
+                                torch.float32)
+    if cfg_r.n_patches:
+        stubs["patches"] = _meta((2, cfg_r.n_patches, cfg_r.d_model),
+                                 torch.float32)
 
     def loss(p, t):
-        return m_r.loss(p, {"tokens": t, "labels": t})[0]
+        return m_r.loss(p, {"tokens": t, "labels": t, **stubs})[0]
 
     def grad(p, t):
         with torch.enable_grad():

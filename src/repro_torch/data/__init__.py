@@ -1,6 +1,6 @@
-# Counterpart of src/repro/data/__init__.py.  Not ported yet: `packing.py`
-# and `loader.py` (document packing, the prefetch loader), which no ported
-# path uses.
+# Counterpart of src/repro/data/__init__.py: the same re-exports.
 from repro_torch.data.synthetic import (  # noqa: F401
     DEFAULT_DOMAINS, Domain, PhaseSchedule, SyntheticCorpus, default_schedule,
 )
+from repro_torch.data.packing import pack_documents, packing_efficiency  # noqa: F401
+from repro_torch.data.loader import PrefetchLoader, host_slice  # noqa: F401

@@ -1,6 +1,7 @@
 # Counterpart of src/repro/kernels/flash_decode.py (`flash_decode`, body
-# `_decode_kernel`).  The int8 cache (dequantisation fused into the load)
-# is not ported yet.
+# `_decode_kernel`).  An int8 cache is dequantized outside the kernel, as in
+# the reference (models/decode.py); fusing the dequantization into the load
+# is optional performance work.
 """Flash decode: one query token per row against a KV cache with per-row
 lengths.  A CUDA kernel written by hand for Hopper, its plain PyTorch
 version, the split plan, and the wrapper that chooses between kernel and

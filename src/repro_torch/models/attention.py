@@ -1,6 +1,6 @@
-# Counterpart of src/repro/models/attention.py.  Not ported yet: the
-# cross-attention inputs of `qkv` (`kv_x`, `kv_positions`, `rope=False`) and
-# `attend_reference`'s `kv_len`, which only the enc-dec family uses.
+# Counterpart of src/repro/models/attention.py; nothing of it is left
+# unported.  `attend` with "pallas" raises (the port's kernel is "cuda"), and
+# `attend_decode` takes the kernel or the plain version by `impl`.
 """GQA attention: reference (quadratic), chunked (streaming softmax in plain
 PyTorch, the training path's) and cuda (the hand-written kernels).
 
@@ -118,18 +118,27 @@ def _proj(p, x, dtype):
 
 
 def qkv(params, a: AttnConfig, layout: HeadLayout, x: torch.Tensor,
-        positions: torch.Tensor, dtype, *, rope_tables=None):
+        positions: torch.Tensor, dtype, *, rope: bool = True,
+        kv_x=None, kv_positions=None, rope_tables=None):
     """Project to padded-slot q and kv-slot k/v, applying qk-norm + RoPE.
-    ``rope_tables``: `layers.rope_tables(positions, ...)` made once by a
-    caller that runs many layers at the same positions."""
+    ``kv_x``/``kv_positions``: the keys' source and positions where they are
+    not the queries' (cross-attention); ``rope=False`` skips the rotation
+    (the enc-dec family's learned positions).  ``rope_tables``:
+    `layers.rope_tables(positions, ...)` made once by a caller that runs many
+    layers at the same positions (used for k only at those positions)."""
+    kv_x = x if kv_x is None else kv_x
     q = _proj(params["wq"], x, dtype)
-    k = _proj(params["wk"], x, dtype)
-    v = _proj(params["wv"], x, dtype)
+    k = _proj(params["wk"], kv_x, dtype)
+    v = _proj(params["wv"], kv_x, dtype)
     if a.qk_norm:                       # before rope
         q = L.rmsnorm(params["q_norm"], q)
         k = L.rmsnorm(params["k_norm"], k)
-    q = L.apply_rope(q, positions, a.rope_theta, rope_tables)
-    k = L.apply_rope(k, positions, a.rope_theta, rope_tables)
+    if rope:
+        q = L.apply_rope(q, positions, a.rope_theta, rope_tables)
+        if kv_positions is None:
+            k = L.apply_rope(k, positions, a.rope_theta, rope_tables)
+        else:
+            k = L.apply_rope(k, kv_positions, a.rope_theta)
     if layout.repeat > 1:
         k = torch.repeat_interleave(k, layout.repeat, dim=2)
         v = torch.repeat_interleave(v, layout.repeat, dim=2)
@@ -179,10 +188,16 @@ def _gqa_out(probs, v, hp: int):
 
 
 def attend_reference(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
-                     causal: bool, window, cap: float = 0.0) -> torch.Tensor:
+                     causal: bool, window, cap: float = 0.0,
+                     kv_len=None) -> torch.Tensor:
+    """The quadratic softmax.  ``kv_len`` ([B] or broadcastable to k_pos's
+    batch axis): keys at positions >= kv_len are masked (empty cache
+    slots)."""
     scores = _gqa_scores(q, k, layout.group)
     scores = L.softcap(scores, cap)
     bias = _mask_bias(q_pos, k_pos, window, causal)
+    if kv_len is not None:              # decode: mask empty cache slots
+        bias = bias + torch.where(k_pos < kv_len, 0.0, NEG_INF)[..., None, :]
     scores = scores + bias[:, None, None] if bias.ndim == 3 else scores + bias
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(probs, v, layout.h_pad).to(q.dtype)

@@ -1,5 +1,5 @@
-# Counterpart of src/repro/models/decode.py: the dense, MoE, SSM and hybrid
-# families.  Not ported yet: the int8 cache (`_write_kv_quant`).
+# Counterpart of src/repro/models/decode.py: the dense, MoE, SSM, hybrid and
+# VLM families, the int8 cache included; nothing of it is left unported.
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
@@ -15,6 +15,12 @@ One deliberate difference: the reference's SSM prefill calls
 default prefill runs the intra-chunk kernel K3 (as the decode step's
 attention is the flash-decode kernel).  The two compute the same function:
 ``ops.ssd`` and ``ssd_chunked`` agree within 1e-4 (tests/test_kernels.py).
+
+With ``cache_quant="int8"`` (decoder-LM families) the prefill quantizes the
+collected k/v per (token, head) into the cache, and a decode step quantizes
+the new token's, then dequantizes the layer's whole cache to the compute
+dtype **outside** the decode kernel, which attends over those tensors, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
@@ -68,20 +75,43 @@ def _write_kv(k_l, v_l, k_new, v_new, lengths, index=None):
     return k_l, v_l
 
 
+def _write_kv_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, lengths, index=None):
+    """int8-cache variant of `_write_kv`: the new token's kv quantized per
+    (row, head), payload and scale written in place."""
+    rows, pos, ok = (_write_index(lengths, k_l.shape[1]) if index is None
+                     else index)
+    for dst, scl, new in ((k_l, ks_l, k_new), (v_l, vs_l, v_new)):
+        q, sc = KC.quantize_kv(new[:, 0])
+        dst[rows, pos] = torch.where(ok, q, dst[rows, pos])
+        scl[rows, pos] = torch.where(ok[..., 0], sc, scl[rows, pos])
+    return k_l, v_l, ks_l, vs_l
+
+
+def _int8_cache(cfg: ArchConfig) -> bool:
+    """Whether the cache is int8; it is only for the decoder-LM families,
+    as in the reference."""
+    quant = cfg.cache_quant == "int8"
+    if quant and cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            "int8 KV cache is implemented for decoder-LM families")
+    return quant
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
 
 def lm_prefill(params, cfg: ArchConfig, dims: ModelDims, tokens,
-               cache: Dict[str, Any]
+               cache: Dict[str, Any], *, patch_embeds=None
                ) -> Tuple[torch.Tensor, Dict[str, Any], Dict]:
     """Fill the cache from a full prompt; returns last-position logits."""
     require_ported(cfg)
+    quant = _int8_cache(cfg)
     plus_one = cfg.name.startswith("gemma")
     b, s = tokens.shape
     positions = positions_for(tokens)
-    x = embed_tokens(params, cfg, dims, tokens)
+    x = embed_tokens(params, cfg, dims, tokens, patch_embeds)
     if cfg.family == "ssm":
         x, aux = _ssm_prefill(params, cfg, x, cache)
     elif cfg.family == "hybrid":
@@ -90,8 +120,14 @@ def lm_prefill(params, cfg: ArchConfig, dims: ModelDims, tokens,
         x, aux, (ks, vs) = decoder_stack(params, cfg, dims, x, positions,
                                          collect_kv=True, plus_one=plus_one)
         for i in range(cfg.n_layers):              # in place, layer by layer
-            cache["k"][i, :, :s].copy_(ks[i])
-            cache["v"][i, :, :s].copy_(vs[i])
+            if quant:
+                for key, kv in (("k", ks[i]), ("v", vs[i])):
+                    q, scale = KC.quantize_kv(kv)
+                    cache[key][i, :, :s].copy_(q)
+                    cache[f"{key}_scale"][i, :, :s].copy_(scale)
+            else:
+                cache["k"][i, :, :s].copy_(ks[i])
+                cache["v"][i, :, :s].copy_(vs[i])
     cache["length"].fill_(s)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
     logits = unembed(params, cfg, dims, x[:, -1:])
@@ -144,6 +180,7 @@ def lm_decode(params, cfg: ArchConfig, dims: ModelDims, token,
     """One decode step.  token: [B,1] int.  Returns (logits, cache, aux);
     the cache is the one passed in, updated in place."""
     require_ported(cfg)
+    quant = _int8_cache(cfg)
     plus_one = cfg.name.startswith("gemma")
     lengths = cache["length"]                        # [B] int32
     positions = lengths[:, None]
@@ -156,14 +193,15 @@ def lm_decode(params, cfg: ArchConfig, dims: ModelDims, token,
         x = _hybrid_decode(params, cfg, dims, x, positions, cache)
     else:
         x = _dense_decode(params, cfg, dims, x, positions, cache, aux,
-                          plus_one=plus_one)
+                          plus_one=plus_one, quant=quant)
     lengths.add_(1)            # every row, active or not, as the reference
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
     logits = unembed(params, cfg, dims, x)
     return logits, cache, aux
 
 
-def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one):
+def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one,
+                  quant=False):
     lengths = cache["length"]
     attend_len = lengths + 1                         # includes this token
     windows = cfg.layer_windows()
@@ -175,8 +213,15 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one):
         dt = x.dtype
         q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
                         rope_tables=rope)
-        k_l, v_l = _write_kv(cache["k"][i], cache["v"][i], k, v, lengths,
-                             index)
+        if quant:                                    # dequantized outside K2
+            k_l, v_l, ks_l, vs_l = _write_kv_quant(
+                cache["k"][i], cache["v"][i], cache["k_scale"][i],
+                cache["v_scale"][i], k, v, lengths, index)
+            k_l = KC.dequantize_kv(k_l, ks_l, dt)
+            v_l = KC.dequantize_kv(v_l, vs_l, dt)
+        else:
+            k_l, v_l = _write_kv(cache["k"][i], cache["v"][i], k, v, lengths,
+                                 index)
         ctx = A.attend_decode(q, k_l, v_l, attend_len, dims.layout,
                               window=windows[i], cap=cfg.attn.softcap,
                               impl=cfg.attention_impl)

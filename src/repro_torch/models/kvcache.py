@@ -1,14 +1,16 @@
-# Counterpart of src/repro/models/kvcache.py.  Not ported yet: the int8 cache
-# (`quantize_kv`, `dequantize_kv`, the scale arrays), the cross-attention
-# cache of the enc-dec family, `update_layer_kv`, and the sharding helpers
-# (`shard_cache`, `cache_specs`: one device here).
+# Counterpart of src/repro/models/kvcache.py.  Not ported: the sharding
+# helpers (`CACHE_AXES`, `shard_cache`, `cache_specs`: one device here).
 """KV cache (decoder self-attention) + recurrent SSM state.
 
 Layout: stacked over layers, ``k``/``v``: [L, B, S_max, KVp, hd]; SSM state
 ``ssm``: [L, B, nh, hp, N], f32 whatever the compute dtype; conv state
 ``conv``: [L, B, d_conv-1, conv_dim] in the compute dtype; ``length``: [B]
-int32.  The cache is owned by its caller and **updated in place** by prefill
-and decode, where the JAX package returns new arrays.
+int32.  With ``quant`` the k/v payload is int8 and ``k_scale``/``v_scale``
+([L, B, S_max, KVp], bf16) hold one scale per (token, head).  The enc-dec
+family's cross-attention cache ``cross_k``/``cross_v`` ([L, B, cross_len,
+KVp, hd], compute dtype) holds the encoder's projected k/v.  The cache is
+owned by its caller and **updated in place** by prefill and decode, where
+the JAX package returns new arrays.
 """
 from __future__ import annotations
 
@@ -19,22 +21,42 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) int8 quantization.  x: [..., hd] ->
+    (int8 [..., hd], scale [...] bf16 with the /127 folded in)."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(xf.abs(), dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
 def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
                head_dim: int, dtype, *, ssm: Optional[Dict[str, int]] = None,
-               device: DeviceLike = None,
+               cross_len: int = 0, device: DeviceLike = None,
                quant: bool = False) -> Dict[str, Any]:
-    if quant:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, Queue A: "
-            "enc-dec, VLM, int8 weights and cache)")
     dev = resolve_device(device)
     cache: Dict[str, Any] = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
     if kv_pad:
         shape = (n_layers, batch, max_seq, kv_pad, head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        kv_dtype = torch.int8 if quant else dtype
+        cache["k"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        if quant:
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                           device=dev)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                           device=dev)
+    if cross_len and kv_pad:
+        shape = (n_layers, batch, cross_len, kv_pad, head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
     if ssm is not None:
         cache["ssm"] = torch.zeros(
             (ssm["n_layers"], batch, ssm["n_heads"], ssm["head_dim"],
@@ -43,3 +65,15 @@ def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
             (ssm["n_layers"], batch, ssm["d_conv"] - 1, ssm["conv_dim"]),
             dtype=dtype, device=dev)
     return cache
+
+
+def update_layer_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, index: int):
+    """Write k_new/v_new ([B,s,KVp,hd]) at position ``index``, in place.
+    As the reference's ``dynamic_update_slice``, the start is clamped so
+    that the ``s`` positions fit in the cache."""
+    s = k_new.shape[1]
+    i = max(0, min(int(index), k_layer.shape[1] - s))
+    k_layer[:, i:i + s].copy_(k_new)
+    v_layer[:, i:i + s].copy_(v_new)
+    return k_layer, v_layer

@@ -1,7 +1,7 @@
-# Counterpart of src/repro/models/layers.py.  Not ported yet: ``axes_tree``
-# (sharding axes have no use on one device), ``l2norm``, and int8 weights:
-# ``ParamSpec.dtype``, the int8 branch of ``get_kernel``, ``quantize_specs``
-# and ``quantize_params``.
+# Counterpart of src/repro/models/layers.py; nothing of it is left unported.
+# ``quantize_specs(..., "int4")`` gives specs whose payload no tensor here can
+# hold (torch has no int4): as in the reference it serves the dry-run's
+# shapes only, and `transformer.require_ported` refuses int4 weights.
 """Parameter machinery + elementary layers (plain functions on tensors).
 
 Parameters are nested dicts of tensors with the key names and shapes of the
@@ -32,8 +32,11 @@ class ParamSpec:
     scale: float = 1.0
     # init_fn(generator, shape, device) -> float32 tensor
     init_fn: Optional[Callable[..., torch.Tensor]] = None
+    dtype: Optional[str] = None   # override model param dtype (int8 quant)
 
     def instantiate(self, gen: torch.Generator, dtype, device) -> torch.Tensor:
+        if self.dtype is not None:
+            dtype = spec_dtype(self)
         if self.init_fn is not None:
             return self.init_fn(gen, self.shape, device).to(dtype)
         if self.init == "zeros":
@@ -46,6 +49,20 @@ class ParamSpec:
         else:
             std = self.scale * 0.02
         return (std * normal(gen, self.shape, device)).to(dtype)
+
+
+SPEC_DTYPES = {"int8": torch.int8, "float32": torch.float32}
+
+
+def spec_dtype(spec: ParamSpec):
+    """The tensor dtype of a spec's override (``None`` without one)."""
+    if spec.dtype is None:
+        return None
+    if spec.dtype not in SPEC_DTYPES:
+        raise NotImplementedError(
+            f"parameter dtype {spec.dtype!r} has no tensor type here (the "
+            "reference's int4 specs serve its dry-run only)")
+    return SPEC_DTYPES[spec.dtype]
 
 
 def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -69,6 +86,11 @@ def init_tree(gen: torch.Generator, specs: Dict[str, Any], dtype,
     """Instantiate a (nested) dict of ParamSpec into tensors.  One generator
     is consumed leaf by leaf in key order, so a seed fixes the whole tree."""
     return map_specs(lambda s: s.instantiate(gen, dtype, device), specs)
+
+
+def axes_tree(specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical-axes tuple of every spec, in the specs' nesting."""
+    return map_specs(lambda s: s.axes, specs)
 
 
 def stack_specs(specs: Dict[str, Any], n: int,
@@ -124,6 +146,13 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6,
     return (y * scale).to(dt)
 
 
+def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Projections / embeddings / MLP
 # ---------------------------------------------------------------------------
@@ -139,11 +168,12 @@ def dense_specs(d_in: int, d_out: int, axes: Tuple[Optional[str], ...],
 
 
 def get_kernel(params: Params, compute_dtype) -> torch.Tensor:
-    """The projection's kernel in compute dtype (int8 weights: not ported)."""
+    """The projection's kernel in compute dtype.  Weight-only quantization
+    (serving): an int8 kernel with a per-output-channel f32 scale is
+    dequantized on use, in compute dtype, as the reference does."""
     if "kernel_q" in params:
-        raise NotImplementedError(
-            "int8 weight-only quantisation is not ported yet (ROADMAP.md, "
-            "Queue A: enc-dec, VLM, int8 weights and cache)")
+        q = params["kernel_q"].to(compute_dtype)
+        return q * params["kernel_scale"].to(compute_dtype)[None]
     return params["kernel"].to(compute_dtype)
 
 
@@ -154,6 +184,63 @@ def dense(params: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
+
+
+def _quant_reduce_axis(axes: Tuple[Optional[str], ...]) -> int:
+    """Contraction (input) axis of a kernel: axis 0, or 1 when the kernel is
+    layer-stacked (leading "layer" axis from stack_specs)."""
+    return 1 if (axes and axes[0] == "layer") else 0
+
+
+def quantize_specs(specs, qdtype: str = "int8"):
+    """ParamSpec-tree transform: replace every ``kernel`` spec with an
+    int8/int4 payload + per-out-channel scale specs (same logical axes, the
+    scale inherits the kernel's non-contracting axes)."""
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "kernel" and is_spec(v) and len(v.shape) >= 2:
+                    r = _quant_reduce_axis(v.axes)
+                    out["kernel_q"] = dataclasses.replace(
+                        v, init="zeros", dtype=qdtype)
+                    out["kernel_scale"] = ParamSpec(
+                        v.shape[:r] + v.shape[r + 1:],
+                        v.axes[:r] + v.axes[r + 1:], "ones", dtype="float32")
+                else:
+                    out[k] = walk(v)
+            return out
+        return node
+    return walk(specs)
+
+
+def quantize_params(params, axes=None):
+    """Real int8 symmetric per-output-channel quantization of every kernel:
+    scale = max|w| / 127 along the contraction axis (f32), payload
+    round(w / scale) (half to even) clipped to +-127.  ``axes`` (the
+    matching logical-axes tree, ``Model.axes()``) disambiguates
+    layer-stacked kernels; without it the contraction axis is assumed to be
+    0.  New tensors on the parameters' device; the input is not changed."""
+    def walk(node, anode):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                av = anode.get(k) if isinstance(anode, dict) else None
+                if k == "kernel" and isinstance(v, torch.Tensor) \
+                        and v.ndim >= 2:
+                    r = _quant_reduce_axis(av if av is not None else ())
+                    w = v.float()
+                    scale = torch.clamp(torch.amax(w.abs(), dim=r),
+                                        min=1e-8) / 127.0
+                    q = torch.clamp(torch.round(w / scale.unsqueeze(r)),
+                                    -127, 127)
+                    out["kernel_q"] = q.to(torch.int8)
+                    out["kernel_scale"] = scale
+                else:
+                    out[k] = walk(v, av)
+            return out
+        return node
+    return walk(params, axes)
 
 
 def embed_lookup(params: Params, tokens: torch.Tensor,

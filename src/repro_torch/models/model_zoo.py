@@ -1,6 +1,6 @@
-# Counterpart of src/repro/models/model_zoo.py: the dense, MoE, SSM and
-# hybrid decoder LMs.  Not ported yet: `Model.axes`, the dry-run input specs,
-# and the enc-dec and VLM families.
+# Counterpart of src/repro/models/model_zoo.py: every family, with int8
+# weights and cache.  Not ported yet: the dry-run's input specs
+# (`input_specs`, `cache_specs_struct`; ROADMAP.md, Queue A, item 6).
 """Unified model facade: build an architecture, expose init / loss /
 forward / prefill / decode plus cache construction.
 
@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode as D
+from repro_torch.models import encdec as ED
 from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -46,6 +47,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss, nll
 
 
+def model_specs(cfg: ArchConfig, dims: ModelDims):
+    """The ParamSpec tree of ``cfg``: the enc-dec or decoder-LM layout, its
+    kernels quantized where ``weight_quant`` says so."""
+    if cfg.family == "encdec":
+        specs = ED.encdec_specs(cfg, dims)
+    else:
+        specs = T.lm_specs(cfg, dims)
+    if cfg.weight_quant in ("int8", "int4"):
+        specs = L.quantize_specs(specs, cfg.weight_quant)
+    return specs
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
@@ -54,7 +67,7 @@ class Model:
 
     # ---- params ----------------------------------------------------------
     def specs(self):
-        return T.lm_specs(self.cfg, self.dims)
+        return model_specs(self.cfg, self.dims)
 
     def init(self, gen: torch.Generator):
         """Random parameters drawn from ``gen`` (where the JAX package takes
@@ -62,12 +75,25 @@ class Model:
         return L.init_tree(gen, self.specs(), dtype_of(self.cfg.param_dtype),
                            self.device)
 
+    def axes(self):
+        """The logical-axes tree of the parameters (for `quantize_params`)."""
+        return L.axes_tree(self.specs())
+
     # ---- forward ---------------------------------------------------------
     @torch.no_grad()
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 rng: Optional[torch.Generator] = None):
-        return T.lm_forward(self.params_on_device(params), self.cfg,
-                            self.dims, batch["tokens"], rng=rng)
+        return self._forward(params, batch, rng)
+
+    def _forward(self, params, batch, rng):
+        """(logits, aux) in the caller's grad mode: the enc-dec family from
+        ``batch["frames"]``, the VLM with ``batch["patches"]`` if given."""
+        params = self.params_on_device(params)
+        if self.cfg.family == "encdec":
+            return ED.encdec_forward(params, self.cfg, self.dims,
+                                     batch["tokens"], batch["frames"])
+        return T.lm_forward(params, self.cfg, self.dims, batch["tokens"],
+                            patch_embeds=batch.get("patches"), rng=rng)
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
              rng: Optional[torch.Generator] = None):
@@ -75,8 +101,7 @@ class Model:
         runs in the caller's grad mode, rematerialised under grad).  MoE
         adds the router's auxiliary loss, averaged over the layers.
         ``rng``: the router jitter's generator (models/moe.py)."""
-        logits, aux = T.lm_forward(self.params_on_device(params), self.cfg,
-                                   self.dims, batch["tokens"], rng=rng)
+        logits, aux = self._forward(params, batch, rng)
         loss, nll = cross_entropy(logits, batch["labels"],
                                   self.cfg.vocab_size)
         if "router_aux_loss" in aux:
@@ -100,18 +125,26 @@ class Model:
             n_kv_layers = T._hybrid_groups(cfg)[1]
         return KC.init_cache(n_kv_layers, batch, max_seq, kv_pad, hd,
                              dtype_of(cfg.compute_dtype), ssm=ssm,
+                             cross_len=(cfg.n_frames if cfg.family == "encdec"
+                                        else 0),
                              device=self.device,
                              quant=cfg.cache_quant == "int8")
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        return D.lm_prefill(self.params_on_device(params), self.cfg,
-                            self.dims, batch["tokens"], cache)
+        params = self.params_on_device(params)
+        if self.cfg.family == "encdec":
+            return ED.encdec_prefill(params, self.cfg, self.dims,
+                                     batch["tokens"], batch["frames"], cache)
+        return D.lm_prefill(params, self.cfg, self.dims, batch["tokens"],
+                            cache, patch_embeds=batch.get("patches"))
 
     @torch.no_grad()
     def decode_step(self, params, token, cache):
-        return D.lm_decode(self.params_on_device(params), self.cfg, self.dims,
-                           token, cache)
+        params = self.params_on_device(params)
+        if self.cfg.family == "encdec":
+            return ED.encdec_decode(params, self.cfg, self.dims, token, cache)
+        return D.lm_decode(params, self.cfg, self.dims, token, cache)
 
     # ----------------------------------------------------------------------
     def params_on_device(self, params):

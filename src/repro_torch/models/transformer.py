@@ -1,9 +1,9 @@
-# Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM and
-# hybrid families.  Not ported yet: the VLM patch projection and the
-# `patch_embeds` argument, `remat="selective"` (no config of the repo uses
-# it), and the `shard(...)` constraints (identities on one device).  The
-# router's `rng` is a `torch.Generator` (see models/moe.py).
-"""Decoder-only LM covering the dense, MoE, SSM and hybrid families.
+# Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM,
+# hybrid and VLM families (the enc-dec family is models/encdec.py).  Not
+# ported: `remat="selective"` (no config of the repo uses it) and the
+# `shard(...)` constraints (identities on one device).  The router's `rng` is
+# a `torch.Generator` (see models/moe.py).
+"""Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
 leading "layer" axis.  The reference scans over that axis; here it is a Python
@@ -11,8 +11,9 @@ loop over the per-layer views that ``split_layers`` makes once per forward.
 With grad enabled each layer (or group of ``remat_group`` layers) is
 rematerialised in the backward, as the reference's ``_maybe_remat`` does.
 Per-layer static attention windows (gemma3's 5:1 local:global) ride along as
-Python ints.  An MoE layer's router statistics and auxiliary loss are summed
-over the layers into the forward's ``aux``.  Hybrid (zamba2) runs groups of
+Python ints.  The VLM's projected patch embeddings (``patch_proj``) replace
+the first ``n_patches`` token embeddings.  An MoE layer's router statistics
+and auxiliary loss are summed over the layers into the forward's ``aux``.  Hybrid (zamba2) runs groups of
 ``attn_every`` Mamba2 layers with one SHARED attention block after each group
 (its parameters live outside the stack and are reused).
 """
@@ -34,23 +35,29 @@ from repro_torch.models import ssm as S
 from repro_torch.models.attention import HeadLayout
 from repro_torch.models.layers import ParamSpec
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_ROADMAP_ITEM = {
-    "encdec": "enc-dec, VLM, int8 weights and cache",
-    "vlm": "enc-dec, VLM, int8 weights and cache",
-}
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def require_ported(cfg: ArchConfig) -> None:
+    """Raise, naming the reason, for what the port does not run: a family
+    it lacks, int4 weights (the reference's int4 serves its dry-run only:
+    ROADMAP.md, Queue A, item 6), and the enc-dec family with an int8 cache
+    (the reference casts its k/v to int8 with no scale; ROADMAP.md, faults
+    of the reference)."""
     if cfg.family not in PORTED_FAMILIES:
-        item = _ROADMAP_ITEM.get(cfg.family, cfg.family)
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-            f"ROADMAP.md, Queue A, item '{item}'")
-    if cfg.weight_quant != "none" or cfg.cache_quant != "none":
+            f"family {cfg.family!r} ({cfg.name}) is not ported (ROADMAP.md)")
+    if cfg.weight_quant not in ("none", "int8"):
         raise NotImplementedError(
-            "int8 weights and the int8 KV cache are not ported yet: see "
-            "ROADMAP.md, Queue A, item 'enc-dec, VLM, int8 weights and cache'")
+            f"weight_quant={cfg.weight_quant!r}: only 'int8' runs; the "
+            "reference's int4 specs serve its dry-run (ROADMAP.md, Queue A, "
+            "item 6: dry-run / roofline)")
+    if cfg.cache_quant == "int8" and cfg.family == "encdec":
+        raise NotImplementedError(
+            "the enc-dec family with an int8 KV cache: the reference casts "
+            "its k/v to int8 with no scale (src/repro/models/encdec.py, "
+            "encdec_prefill and encdec_decode), a fault the port does not "
+            "copy (ROADMAP.md, faults of the reference)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +122,9 @@ def lm_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"kernel": ParamSpec(
             (cfg.d_model, dims.vocab_pad), ("embed", "vocab"), "scaled")}
+    if cfg.n_patches:
+        specs["patch_proj"] = L.dense_specs(cfg.d_model, cfg.d_model,
+                                            ("embed", None))
     return specs
 
 
@@ -132,7 +142,12 @@ def split_layers(params, cfg: ArchConfig) -> List[Dict[str, Any]]:
     a zero gradient the size of the whole stacked leaf."""
     if not cfg.scan_layers:
         return [params["layers"][f"layer_{i}"] for i in range(cfg.n_layers)]
+    return unstack(params["layers"], cfg.n_layers)
 
+
+def unstack(stacked, n: int) -> List[Dict[str, Any]]:
+    """The ``n`` per-layer trees of a tree of layer-stacked leaves (views,
+    one ``unbind`` a leaf; see ``split_layers``)."""
     def split(tree):
         if isinstance(tree, dict):
             return {k: split(v) for k, v in tree.items()}
@@ -143,8 +158,8 @@ def split_layers(params, cfg: ArchConfig) -> List[Dict[str, Any]]:
             return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
 
-    parts = split(params["layers"])
-    return [pick(parts, i) for i in range(cfg.n_layers)]
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n)]
 
 
 def _maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
@@ -351,12 +366,20 @@ def _hybrid_stack(params, layers, cfg, dims, x, positions, *,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, cfg: ArchConfig, dims: ModelDims, tokens):
+def embed_tokens(params, cfg: ArchConfig, dims: ModelDims, tokens,
+                 patch_embeds=None):
+    """Token embeddings; for the VLM, ``patch_embeds`` [B, n_patches,
+    d_model] projected by ``patch_proj`` take the first ``n_patches``
+    positions (all of them when the prompt is shorter)."""
     dt = dtype_of(cfg.compute_dtype)
     x = L.embed_lookup(params["embed"], tokens, dt)
     if cfg.name.startswith("gemma"):
         # the factor is rounded to the compute dtype first, as the reference
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    if cfg.n_patches and patch_embeds is not None:
+        pe = L.dense(params["patch_proj"], patch_embeds.to(dt), dt)
+        x = (torch.cat([pe, x[:, cfg.n_patches:]], dim=1)
+             if x.shape[1] > cfg.n_patches else pe[:, :x.shape[1]])
     return x
 
 
@@ -379,11 +402,11 @@ def positions_for(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params, cfg: ArchConfig, dims: ModelDims, tokens, *,
-               rng=None) -> Tuple[torch.Tensor, Dict]:
+               patch_embeds=None, rng=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits, aux)."""
     plus_one = cfg.name.startswith("gemma")
     positions = positions_for(tokens)
-    x = embed_tokens(params, cfg, dims, tokens)
+    x = embed_tokens(params, cfg, dims, tokens, patch_embeds)
     x, aux, _ = decoder_stack(params, cfg, dims, x, positions, rng=rng,
                               plus_one=plus_one)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)

@@ -1,7 +1,7 @@
-# Counterpart of src/repro/serve/engine.py.  Not ported yet: the enc-dec
-# frames and VLM patches of `_insert` (those families are not ported).  One
-# single-row prefill cache is reused for every prefill, where the reference
-# makes a new one each time.
+# Counterpart of src/repro/serve/engine.py; nothing of it is left unported.
+# One single-row prefill cache is reused for every prefill, where the
+# reference makes a new one each time, and so are the zero enc-dec frames and
+# VLM patches that `_insert` passes (the reference makes new zeros each time).
 """Serving engine: continuous batching over a fixed-shape decode batch.
 
 Requests prefill into a single-row cache (fixed prefill length, padded) and
@@ -100,8 +100,17 @@ class ServeEngine:
         self.cache = self.model.init_cache(self.batch, self.max_seq)
         # one single-row cache for every prefill; a prefill only writes its
         # first `prefill_len` positions and overwrites the whole SSM and conv
-        # state, so the rest stays as in a fresh cache
+        # state and cross cache, so the rest stays as in a fresh cache
         self.pre_cache = self.model.init_cache(1, self.max_seq)
+        # the prefill's stub inputs: zero frames (enc-dec) and patches (VLM)
+        # [1, n, d_model] f32, as the reference's, made once
+        self.stub_inputs = {}
+        if self.cfg.family == "encdec":
+            self.stub_inputs["frames"] = torch.zeros(
+                (1, self.cfg.n_frames, self.cfg.d_model), device=self.device)
+        if self.cfg.n_patches:
+            self.stub_inputs["patches"] = torch.zeros(
+                (1, self.cfg.n_patches, self.cfg.d_model), device=self.device)
         self.lengths = np.zeros(self.batch, np.int64)   # host mirror
         self.active = np.zeros(self.batch, bool)
         self.remaining = np.zeros(self.batch, np.int64)
@@ -123,11 +132,13 @@ class ServeEngine:
         p = np.zeros(self.prefill_len, np.int32)
         n = min(len(req.prompt), self.prefill_len)
         p[:n] = req.prompt[:n]
-        batch = {"tokens": torch.from_numpy(p)[None].to(self.device)}
+        batch = {"tokens": torch.from_numpy(p)[None].to(self.device),
+                 **self.stub_inputs}
         logits, pre_cache, _ = self.model.prefill(self.model_params, batch,
                                                   self.pre_cache)
         # copy row 0 of every key of the single-row cache into the decode
-        # slot, in place and on the device
+        # slot (cross cache and int8 scales included), in place and on the
+        # device
         for key, dst in self.cache.items():
             if key == "length":
                 dst[slot].copy_(pre_cache[key][0])

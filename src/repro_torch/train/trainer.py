@@ -1,7 +1,9 @@
 # Counterpart of src/repro/train/trainer.py; nothing of it is left unported
 # but the `donate` switch: the step always updates the state in place, so
 # `make_runner`'s reset builds a fresh state every time, from initial
-# parameters drawn once per trainer and kept on the host.
+# parameters drawn once per trainer and kept on the host.  The default corpus
+# carries the enc-dec family's frames and the VLM's patches, as the
+# reference's does.
 """Instrumented trainer: the paper's "interval analysis executable" is this
 loop with profiling on.  Features:
 
@@ -98,8 +100,11 @@ class Trainer:
 
         if data is None:
             from repro_torch.data.synthetic import SyntheticCorpus
-            data = SyntheticCorpus(cfg.vocab_size, self.shape.seq_len,
-                                   self.shape.global_batch, seed=seed)
+            data = SyntheticCorpus(
+                cfg.vocab_size, self.shape.seq_len, self.shape.global_batch,
+                seed=seed,
+                n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
+                d_model=cfg.d_model, n_patches=cfg.n_patches)
         self.data = data
 
         self.table: Optional[BlockTable] = (

@@ -140,3 +140,48 @@ def test_moe_serving_path_runs_the_attention_kernels(smoke):
         else:
             assert launches == {k: 0 for k in smoke.KERNELS}, launches
     assert outs["cuda"] == outs["reference"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["whisper-tiny", "internvl2-76b",
+                                  "qwen3-1.7b/int8"])
+def test_enc_dec_vlm_and_int8_paths_run_the_attention_kernels(smoke, path):
+    """The enc-dec, VLM and int8 serving paths, reduced (head_dim 64, f32),
+    on the card: K1 in every prefill layer (the enc-dec encoder's layers,
+    not causal, included), K2 in every decode layer (on the int8 path over
+    the dequantized cache), K3 never, by the launch counters; the greedy
+    tokens are those of the plain path (`attention_impl="reference"`)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.layers import quantize_params
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ServeEngine, SyntheticRequests
+    arch, _, variant = path.partition("/")
+    base = reduced(get_config(arch))
+    base = dataclasses.replace(base, attn=dataclasses.replace(base.attn,
+                                                              head_dim=64))
+    model = build_model(base)
+    params = model.init(torch.Generator().manual_seed(0))
+    cfg = base
+    if variant:
+        cfg = dataclasses.replace(base, **smoke.VARIANTS[variant])
+        params = quantize_params(params, model.axes())
+    gen = SyntheticRequests(cfg.vocab_size, prompt_len=12, mean_new=6, seed=0)
+    outs = {}
+    for impl in ("cuda", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        eng = ServeEngine(c, batch=2, max_seq=64, prefill_len=16,
+                          instrument=False)
+        smoke.reset_counters()
+        eng.run(params, [gen.request(i) for i in range(4)])
+        launches = smoke.read_counters()
+        outs[impl] = {r.req_id: r.output for r in eng.done}
+        if impl == "cuda":
+            want = smoke.expected_launches(
+                c, eng.kinds_log.count("prefill"),
+                eng.kinds_log.count("decode"))
+            assert launches == want and want["flash_decode"] > 0, launches
+            assert want["ssd_intra"] == 0
+        else:
+            assert launches == {k: 0 for k in smoke.KERNELS}, launches
+    assert outs["cuda"] == outs["reference"]

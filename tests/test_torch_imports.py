@@ -49,7 +49,8 @@ def test_sources_were_found():
             "kmeans.py", "select.py", "markers.py", "nugget.py",
             "profile_store.py", "validate.py", "faults.py", "store.py",
             "journal.py", "scheduler.py", "stages.py", "runtime.py",
-            "pipeline.py", "obs.py", "moe.py"} <= names
+            "pipeline.py", "obs.py", "moe.py", "encdec.py", "packing.py",
+            "loader.py"} <= names
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
@@ -90,6 +91,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu():
         init_cache(2, 1, 8, 1, 16, torch.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(reduced(get_config("olmoe-1b-7b")))
+    for arch in ("whisper-tiny", "internvl2-76b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(reduced(get_config(arch)))
     assert ServeEngine(cfg, device="cpu", instrument=False).device.type == "cpu"
 
 
