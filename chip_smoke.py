@@ -30,7 +30,14 @@ full-width qwen3-1.7b on platforms bf16 and f32 in a fresh store (every
 stage computes), a warm rerun (every stage hits, no ``Trainer`` is built),
 a selector change (profile and baselines hit, the rest re-runs), full-width
 mamba2-780m on bf16, and ``workers=4`` against serial at the reduced size;
-K1, K2 and K3 must launch 0 times there too.
+K1, K2 and K3 must launch 0 times there too.  Last, the distributed phase:
+an NCCL process group of world size 1 and a ``(data, model)`` DeviceMesh;
+the sharded train step of full-width qwen3-1.7b (DTensor parameters and
+optimizer state placed by the training plan) against the plain step from
+the same parameters, the int8 ``compressed_psum`` of a gradient tree,
+``meter_psum``, an elastic restore onto the mesh, ``gpipe`` at one stage,
+the fault-injected training run at the reduced size, and every kernel
+wrapper refusing a DTensor.
 
 Every phase prints one JSON object on a line of its own.  The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
@@ -50,8 +57,9 @@ while developing (the last two lines are then not printed); the extra phase
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
 times K1, K2 and K3 with every tile choice their launch plans choose from.
 ``--phases device,train`` runs the training phase (the MoE train check
-included) alone, and
-``--phases device,pipeline`` the pipeline phase.
+included) alone,
+``--phases device,pipeline`` the pipeline phase, and
+``--phases device,distributed`` the distributed phase.
 """
 from __future__ import annotations
 
@@ -1897,6 +1905,372 @@ def phase_pipeline(tmp) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distributed phase: NCCL at world size 1, the sharded train step
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_LOSS_TOL = 2e-2      # relative; tests/test_sharded_train.py's bound
+# The fault-injected run (tests/test_fault_tolerance.py's): reduced qwen3 on
+# the card, killed at steps 7 and 13, a checkpoint every 5 steps.  A
+# full-width train state is 24 GB a checkpoint.
+FAULT_RUN = dict(steps=16, seq_len=16, batch=2, ckpt_every=5,
+                 kill_at={1: 7, 2: 13})
+
+
+def _timed_steps(step, state, batches) -> tuple:
+    """Run ``step`` over ``batches``; (state, losses, host ms per step: a
+    host clock around each step, which ends in a synchronise)."""
+    losses, host_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m, _ = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, host_ms
+
+
+def phase_distributed(tmp) -> dict:
+    """The distributed modules on the card, through an NCCL process group of
+    world size 1 (`launch.mesh.init_process_group`, a `file://` store; a
+    failing NCCL start fails the phase, there is no gloo fallback) and a
+    `(data 1, model 1)` DeviceMesh.  The sharded train step (qwen3-1.7b at
+    full width and depth, bf16, remat, 4 x 512, AdamW with the f32 master,
+    chunked attention; parameters, moments and master DTensors placed by
+    `params_shardings` and `opt_state_axes`, the batch sharded over "batch")
+    against the plain step from the same parameters: losses within
+    `DIST_LOSS_TOL`, the same block table and unit of work, K1/K2/K3 at 0
+    launches; host ms, device busy ms and peak memory of both.  Then
+    `compressed_psum` of a gradient tree over NCCL (each leaf within its
+    int8 half step), `meter_psum`, an elastic restore of the plain
+    parameters onto the mesh (bit-equal), `gpipe` at S = 1 against
+    sequential apply, the fault-injected training run at the reduced size
+    (bit-equal to the uninterrupted run), and every kernel wrapper refusing
+    a CUDA DTensor."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.blocks_lm import build_block_table
+    from repro_torch.core.meter import meter_psum
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.distributed.sharding import (
+        distribute, distribute_batch, logical_rules, params_shardings,
+        sharded_region, to_plain, use_rules)
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import (AdamWConfig, compressed_psum,
+                                   compression_ratio, constant,
+                                   init_error_feedback)
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    backend = init_process_group(os.path.join(tmp, "nccl_store"), 0, 1,
+                                 timeout_s=300)
+    assert backend == "nccl" and dist.get_backend() == "nccl", backend
+    out = {"backend": backend, "world_size": dist.get_world_size()}
+    try:
+        mesh = make_host_mesh(model=1)
+        assert mesh.device_type == "cuda", mesh
+        plan = logical_rules(mesh, mode="train")
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  attention_impl="chunked",
+                                  ssm_impl="chunked")
+        shape = ShapeConfig("dist_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+        opt = AdamWConfig(lr=TRAIN_LR)
+        corpus = SyntheticCorpus(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=0)
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in corpus.batch_at(i).items()
+                    if k in ("tokens", "labels")}
+                   for i in range(DIST_STEPS)]
+
+        # ---- the plain step ----------------------------------------------
+        model1 = build_model(cfg)
+        table1 = build_block_table(model1, shape)
+        t0 = time.perf_counter()
+        p0 = model1.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        out["init_seconds"] = time.perf_counter() - t0
+        state = init_train_state(model1, tree_map(lambda t: t.clone(), p0),
+                                 opt, table1)
+        step1 = make_train_step(model1, opt, constant(TRAIN_LR), table=table1)
+        torch.cuda.reset_peak_memory_stats()
+        state, plain_losses, plain_ms = _timed_steps(step1, state, batches)
+        plain_trace = train_step_trace(lambda: step1(state, batches[0]))
+        plain_peak = torch.cuda.max_memory_allocated()
+        # kept in host memory, so that the two runs' peaks compare
+        plain_params = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                state.params)
+        ck_dir = os.path.join(tmp, "dist_ck")
+        t0 = time.perf_counter()
+        Checkpointer(ck_dir, async_save=False).save(
+            DIST_STEPS, {"params": state.params})
+        save_s = time.perf_counter() - t0
+        del state, step1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the sharded step: counters to 0 just before, read just after -
+        with use_rules(plan):
+            model2 = build_model(cfg, plan)
+            table2 = build_block_table(model2, shape)
+            axes = model2.axes()
+            params = distribute(tree_map(lambda t: t.clone(), p0),
+                                params_shardings(mesh, plan, axes))
+            state = init_train_state(model2, params, opt, table2)
+            sbatches = [distribute_batch(b, plan) for b in batches]
+            step2 = make_train_step(model2, opt, constant(TRAIN_LR),
+                                    table=table2)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            state, sharded_losses, sharded_ms = _timed_steps(
+                step2, state, sbatches)
+            launches = read_counters()
+            assert launches == {k: 0 for k in KERNELS}, launches
+            sharded_trace = train_step_trace(
+                lambda: step2(state, sbatches[0]))
+            sharded_peak = torch.cuda.max_memory_allocated()
+            leaf, mu = tree_leaves(state.params)[0], tree_leaves(
+                state.opt.mu)[0]
+            assert type(leaf).__name__ == "DTensor" and \
+                mu.placements == leaf.placements, (type(leaf), mu)
+            rel = [abs(a - b) / abs(b)
+                   for a, b in zip(sharded_losses, plain_losses)]
+            assert all(math.isfinite(x) for x in sharded_losses)
+            assert max(rel) < DIST_LOSS_TOL, (plain_losses, sharded_losses)
+            assert table1.names == table2.names
+            assert table1.step_uow() == table2.step_uow()
+            assert int(state.meter["uow"]) == \
+                (DIST_STEPS + 2) * int(round(table2.step_uow()))
+            out.update(
+                arch=cfg.name, n_layers=cfg.n_layers, seq_len=TRAIN_SEQ,
+                batch=TRAIN_BATCH, steps=DIST_STEPS,
+                plain_losses=plain_losses, sharded_losses=sharded_losses,
+                loss_rel_diff=rel, step_uow=table2.step_uow(),
+                same_block_names=True, launches=launches,
+                plain_step_host_ms=plain_ms,
+                sharded_step_host_ms=sharded_ms,
+                plain_trace=plain_trace, sharded_trace=sharded_trace,
+                plain_peak_memory_bytes=plain_peak,
+                sharded_peak_memory_bytes=sharded_peak)
+
+            # ---- compressed_psum of one gradient tree over NCCL ----------
+            with torch.enable_grad(), sharded_region(state.params):
+                loss, _ = model2.loss(state.params, sbatches[0])
+                grads = torch.autograd.grad(loss, tree_leaves(state.params))
+            del loss
+            dp = mesh["data"]
+            worst, t_c = 0.0, 0.0
+            for g in grads:
+                g = to_plain(g)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean, _ = compressed_psum({"g": g}, init_error_feedback(
+                    {"g": g}), dp)
+                torch.cuda.synchronize()
+                t_c += time.perf_counter() - t0
+                gmax = float(g.float().abs().max())
+                half = gmax / 127 / 2
+                err = float((mean["g"] - g.float()).abs().max())
+                # the half step, and the f32 rounding of q * scale
+                assert err <= half + gmax * 2 ** -23, (err, half)
+                worst = max(worst, err / half if half else 0.0)
+                del mean
+            out["compressed_psum"] = dict(
+                leaves=len(grads), worst_err_over_half_step=worst,
+                ms=t_c * 1e3, compression_ratio=compression_ratio(
+                    {str(i): g for i, g in enumerate(grads)}))
+            del grads
+
+            # ---- meter_psum over NCCL ------------------------------------
+            summed = meter_psum(state.meter, dp)
+            assert all(torch.equal(summed[k], state.meter[k])
+                       for k in state.meter), (summed, state.meter)
+            out["meter_psum"] = {"uow": int(summed["uow"]),
+                                 "steps": int(summed["steps"])}
+            del state, step2, sbatches
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ---- elastic restore of the plain parameters onto the mesh ---
+            t0 = time.perf_counter()
+            restored, _ = Checkpointer(ck_dir).restore(
+                {"params": p0}, DIST_STEPS,
+                shardings={"params": params_shardings(mesh, plan, axes)})
+            restore_s = time.perf_counter() - t0
+            same = [type(r).__name__ == "DTensor"
+                    and torch.equal(to_plain(r).cpu(), p)
+                    for r, p in zip(tree_leaves(restored["params"]),
+                                    tree_leaves(plain_params))]
+            assert all(same), same
+            out["elastic_restore"] = dict(
+                leaves=len(same), bit_equal=True, save_seconds=save_s,
+                restore_seconds=restore_s)
+            del restored, plain_params, p0
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # ---- gpipe at S = 1 against sequential apply --------------------
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        d = cfg.d_model
+        w = torch.randn((d, d), generator=gen, device="cuda") * d ** -0.5
+        b = torch.randn((d,), generator=gen, device="cuda") * 0.1
+        xs = torch.randn((4, TRAIN_BATCH, TRAIN_SEQ, d), generator=gen,
+                         device="cuda")
+
+        def stage_fn(p, x):
+            return torch.tanh(x @ p["w"] + p["b"])
+        piped = gpipe(stage_fn, mesh, axis="data")({"w": w, "b": b}, xs)
+        ref = torch.stack([stage_fn({"w": w, "b": b}, x) for x in xs])
+        gp_err = float((piped - ref).abs().max())
+        assert gp_err < 1e-5, gp_err
+        out["gpipe"] = {"stages": 1, "microbatches": int(xs.shape[0]),
+                        "max_abs_err": gp_err}
+
+        # ---- every kernel wrapper refuses a CUDA DTensor ---------------
+        out["refused_dtensor"] = kernels_refuse_dtensor(mesh)
+
+        # ---- the MoE dispatch under the plan, reduced -------------------
+        out["moe_sharded"] = moe_sharded_vs_plain(mesh)
+
+        # ---- the fault-injected training run, reduced ------------------
+        out["fault_run"] = fault_injected_run(os.path.join(tmp, "fault_ck"))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("distributed", **out)
+    return out["launches"]
+
+
+def moe_sharded_vs_plain(mesh) -> dict:
+    """One train step of reduced olmoe-1b-7b on the mesh (the experts axis
+    under the training plan; the dispatch runs on each rank's rows) against
+    the plain step from the same parameters: the same loss within 1e-5
+    relative, expert token counts and dropped tokens.  The CPU tests hold
+    the same across 4 gloo ranks; here it runs through CUDA DTensors."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.distributed.sharding import (
+        distribute, distribute_batch, logical_rules, params_shardings,
+        use_rules)
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.state import init_train_state, make_train_step
+    cfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
+                              attention_impl="chunked", ssm_impl="chunked")
+    plan = logical_rules(mesh, mode="train")
+    opt = AdamWConfig(lr=TRAIN_LR)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticCorpus(cfg.vocab_size, 32, 4,
+                                         seed=0).batch_at(0).items()
+             if k in ("tokens", "labels")}
+    p0 = build_model(cfg).init(torch.Generator().manual_seed(0))
+    runs = {}
+    for name, pl in (("plain", None), ("sharded", plan)):
+        with use_rules(pl):
+            model = build_model(cfg, pl)
+            params, feed = tree_map(lambda t: t.clone(), p0), batch
+            if pl is not None:
+                params = distribute(params, params_shardings(
+                    mesh, plan, model.axes()))
+                feed = distribute_batch(batch, plan)
+            state = init_train_state(model, params, opt)
+            _, m, aux = make_train_step(model, opt, constant(TRAIN_LR))(
+                state, feed)
+            runs[name] = (float(m["loss"]), aux["expert_tokens"].cpu(),
+                          int(aux["dropped_tokens"]))
+    (lp, ep, dp), (ls, es, ds) = runs["plain"], runs["sharded"]
+    assert abs(ls - lp) <= 1e-5 * abs(lp), (lp, ls)
+    assert torch.equal(ep, es) and dp == ds, (ep, es, dp, ds)
+    return {"arch": cfg.name, "reduced": True, "experts_spec": list(
+        plan.spec(("experts", "embed", "expert_mlp"))), "loss_plain": lp,
+        "loss_sharded": ls, "expert_tokens": int(es.sum()),
+        "dropped_tokens": ds}
+
+
+def kernels_refuse_dtensor(mesh) -> dict:
+    """Each kernel wrapper, given CUDA DTensors, raises by name before it
+    reads a pointer; none of them launches."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd import ssd_intra
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return distribute_tensor(torch.randn(shape, device="cuda",
+                                             dtype=dtype),
+                                 mesh, [Replicate()] * mesh.ndim)
+
+    q, k = leaf(1, 64, 4, 64), leaf(1, 64, 4, 64)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": lambda: flash_attention(q, k, k, group=1),
+        "flash_decode": lambda: flash_decode(q[:, :1], k, k, lengths,
+                                             group=1),
+        "ssd_intra": lambda: ssd_intra(
+            q, leaf(1, 64, 4, dtype=torch.float32),
+            leaf(4, dtype=torch.float32), leaf(1, 64, 16), leaf(1, 64, 16),
+            64),
+    }
+    before = read_counters()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except TypeError as e:
+            assert name in str(e) and "DTensor" in str(e), (name, e)
+            out[name] = str(e)[:80]
+        else:
+            raise AssertionError(f"{name} ran on a CUDA DTensor")
+    assert read_counters() == before
+    return out
+
+
+def fault_injected_run(ck_dir) -> dict:
+    """`FaultInjectingRun` over the port's `Trainer` on the card at the
+    reduced size (tests/test_fault_tolerance.py's run): the fleet killed at
+    steps 7 and 13, each restart a fresh trainer resuming from the latest
+    checkpoint; its final parameters must equal an uninterrupted run's bit
+    for bit."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.faults import FaultInjectingRun
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import Trainer
+    cfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                              attention_impl="chunked", ssm_impl="chunked")
+    fr = FAULT_RUN
+    t0 = time.perf_counter()
+
+    def trainer(**kw):
+        return Trainer(cfg, seq_len=fr["seq_len"], batch=fr["batch"],
+                       instrument=False, **kw)
+
+    want = trainer().run(fr["steps"])
+    box = {}
+
+    def run_steps(frm: int, to: int) -> int:
+        st = trainer(ckpt_dir=ck_dir, ckpt_every=fr["ckpt_every"]).run(to)
+        box["state"] = st
+        return int(st.step)
+
+    run = FaultInjectingRun(4, run_steps, ckpt_every=fr["ckpt_every"],
+                            kill_at=fr["kill_at"])
+    final = run.run(fr["steps"])
+    assert final == fr["steps"] and run.restarts == 2, (final, run.restarts)
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(want.params),
+                                              tree_leaves(box["state"].params))]
+    assert all(same), same
+    return {"arch": cfg.name, "reduced": True, "steps": final,
+            "restarts": run.restarts, "kill_at": sorted(fr["kill_at"].values()),
+            "bit_equal": True, "leaves": len(same),
+            "seconds": time.perf_counter() - t0}
+
+
 # weights from seed 0.  The SSM paths prefill 512 steps: two SSD chunks, so
 # the inter-chunk carry is on the path.  "qwen3-1.7b/int8" is qwen3-1.7b with
 # int8 weights (`quantize_params` of the path before's) and an int8 KV cache.
@@ -1936,7 +2310,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,profile,train,"
-                            "pipeline")
+                            "pipeline,distributed")
     ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
                     help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
@@ -1972,6 +2346,9 @@ def main() -> int:
         if "pipeline" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_pipeline(tmp)
+        if "distributed" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_distributed(tmp)
         return 0
     carry = {}      # a quantized path's inputs, from its base path's run
     for path, cfg, prefill_len in paths:
@@ -2000,8 +2377,11 @@ def main() -> int:
             launches = phase_pipeline(tmp)
         for arch, n in launches.items():
             per_path[f"{arch}/pipeline"] = n
+    if "distributed" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            per_path[f"{TRAIN_ARCH}/distributed"] = phase_distributed(tmp)
     if checks is None or len(paths) < len(PATHS) or "train" not in phases \
-            or "pipeline" not in phases:
+            or "pipeline" not in phases or "distributed" not in phases:
         return 0
 
     kernels = []

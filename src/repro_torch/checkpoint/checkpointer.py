@@ -1,6 +1,11 @@
-# Counterpart of src/repro/checkpoint/checkpointer.py.  Not ported yet:
-# `restore`'s `shardings` (elastic restore onto a mesh), which waits for the
-# distributed slice.
+# Counterpart of src/repro/checkpoint/checkpointer.py; nothing of it is left
+# unported.  A DTensor leaf is saved as its full array (`full_tensor()`, a
+# collective: every rank calls `save`), so each process's
+# `arrays_p{pidx}.npz` holds the whole state, and `restore(shardings=...)`
+# puts each leaf onto its `(mesh, placements)`, any mesh shape (elastic
+# restore).  The commit renames one directory a step, as the reference's
+# does, so processes that share a checkpoint directory would replace each
+# other's step: give each process its own directory.
 """Atomic, async, keep-N checkpointing with manifest + checksums.
 
 Layout::
@@ -34,8 +39,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.meter import is_meter, meter_from_limbs, meter_to_limbs
+from repro_torch.distributed.sharding import distribute
 
 _BF16 = np.dtype("V2")          # how numpy stores a bf16 array it cannot name
 
@@ -43,6 +50,8 @@ _BF16 = np.dtype("V2")          # how numpy stores a bf16 array it cannot name
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy: the state goes on being updated in place while an
     asynchronous save writes it."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -205,9 +214,15 @@ class Checkpointer:
         return int(name[5:])
 
     def restore(self, template: Any, step: Optional[int] = None,
-                *, verify: bool = True) -> Tuple[Any, Dict]:
+                *, shardings: Any = None, verify: bool = True
+                ) -> Tuple[Any, Dict]:
         """Restore into ``template``'s structure, each tensor cast to the
-        template leaf's dtype and put on its device."""
+        template leaf's dtype and put on its device.  ``shardings``: a tree
+        of the template's structure whose leaves are ``(mesh, placements)``
+        (``distributed.sharding.params_shardings``) or None; each such leaf
+        is put onto its mesh (elastic restore onto another mesh shape).
+        Without it a DTensor leaf of the template is placed as that leaf
+        is."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -220,4 +235,24 @@ class Checkpointer:
             arrays = {k: z[k] for k in z.files}
         if verify and _checksum(arrays) != manifest["checksum"]:
             raise IOError(f"checksum mismatch restoring {full}")
-        return _unflatten(template, arrays), manifest.get("extra", {})
+        tree = _place(_unflatten(template, arrays), template, shardings)
+        return tree, manifest.get("extra", {})
+
+
+def _place(tree, template, shardings, prefix: str = ""):
+    """Put the restored leaves onto their meshes (see ``restore``)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, template[k],
+                          None if shardings is None else shardings[k],
+                          f"{prefix}/{k}")
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[
+            _place(v, t, None if shardings is None else s, f"{prefix}/.{n}")
+            for n, v, t, s in zip(tree._fields, tree, template,
+                                  shardings or (None,) * len(tree))])
+    if shardings is None and isinstance(template, DTensor):
+        shardings = (template.device_mesh, template.placements)
+    if shardings is None or not isinstance(tree, torch.Tensor):
+        return tree
+    return distribute(tree, shardings, prefix)

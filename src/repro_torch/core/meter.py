@@ -1,9 +1,9 @@
-# Counterpart of src/repro/core/meter.py.  Not ported yet: `meter_psum`
-# (cross-replica aggregation), which waits for the distributed slice.  The
-# unit-of-work counter is one int64 where the reference keeps two uint32
+# Counterpart of src/repro/core/meter.py; nothing of it is left unported.
+# The unit-of-work counter is one int64 where the reference keeps two uint32
 # limbs (jaxpr integers are 32-bit); a checkpoint still holds the limbs
 # (`meter_to_limbs`, `meter_from_limbs`), so that the two packages read each
-# other's checkpoints.
+# other's checkpoints.  `meter_psum` takes a process group (or a DeviceMesh
+# dim) where the reference takes a `shard_map` axis name.
 """WorkMeter: the in-step hook state (paper §III-C1).
 
 The meter is a small dict of device tensors that the train step updates in
@@ -18,9 +18,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.registry import BlockTable
+from repro_torch.distributed.sharding import process_group
 from repro_torch.device import DeviceLike, resolve_device
 
 METER_KEYS = ("uow", "counts", "steps")
@@ -51,6 +53,21 @@ def static_increment(table: BlockTable, kind: str = "default",
         "uow": torch.tensor(int(round(table.step_uow(kind))),
                             dtype=torch.int64).to(dev),
     }
+
+
+def meter_psum(meter: Dict[str, torch.Tensor], group=None
+               ) -> Dict[str, torch.Tensor]:
+    """Cross-rank aggregation: every counter summed over ``group`` (a process
+    group or a 1-D DeviceMesh; default: the world) by an all-reduce, into
+    new tensors; the sync cost of hooks.  Every rank of the group must call
+    it."""
+    pg = process_group(group)
+    out = {}
+    for k, v in meter.items():
+        t = v.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=pg)
+        out[k] = t
+    return out
 
 
 def meter_value(meter) -> int:

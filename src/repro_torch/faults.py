@@ -1,7 +1,7 @@
 # Counterpart of src/repro/faults.py: a verbatim copy (numpy / stdlib only) with the
 # package renamed in its imports; nothing of it is left unported.  The
-# distributed restart state machine that its docstring names
-# (`distributed/faults.py`) is not ported yet (ROADMAP Queue A, distributed).
+# distributed restart state machine that its docstring names is ported too
+# (`repro_torch/distributed/faults.py`).
 """Shared failure vocabulary for the whole framework.
 
 One module defines what a *fault* is, so the pipeline scheduler

@@ -31,6 +31,7 @@ import math
 from typing import List, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import build
 
@@ -197,6 +198,17 @@ def check_inputs(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor is not 16-byte aligned")
 
 
+def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
+    """A DTensor on the card passes the device check, but its
+    ``data_ptr()`` is not the data of the global tensor that its shape
+    describes: raise, by name, before anything reads it (no kernel of the
+    port lies on a sharded path)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: the CUDA kernel takes plain tensors, not "
+                        "DTensors; the sharded train step runs the chunked "
+                        "attention and SSD")
+
+
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """The kernels write their outputs through raw pointers, so those have no
     ``grad_fn``: differentiating through a launch would give the inputs no
@@ -232,6 +244,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, group=group, causal=causal,
                                      window=window, cap=cap)
+    refuse_dtensor("flash_attention", q, k, v)
     refuse_grad("flash_attention", q, k, v)
     check_inputs("flash_attention", q, k, v)
     b, s, h, hd = q.shape

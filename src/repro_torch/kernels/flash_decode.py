@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES, NEG_INF, Window, check_inputs, gqa_out, gqa_scores,
-    refuse_grad, window_arg, window_ok)
+    refuse_dtensor, refuse_grad, window_arg, window_ok)
 
 # Blocks to aim for when the kv range is split: about four per SM.  Each
 # (row, kv head) takes the largest power of two of splits that keeps the grid
@@ -128,6 +128,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         return flash_decode_plain(q, k_cache, v_cache, lengths, group=group,
                                   window=window, cap=cap)
+    refuse_dtensor("flash_decode", q, k_cache, v_cache)
     refuse_grad("flash_decode", q, k_cache, v_cache)
     check_inputs("flash_decode", q, k_cache, v_cache)
     b, one, h, hd = q.shape

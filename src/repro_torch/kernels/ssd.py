@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DTYPE_CODES, N_SMS,
-                                                 refuse_grad)
+                                                 refuse_dtensor, refuse_grad)
 
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
@@ -282,6 +282,7 @@ def ssd_intra(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     takes the plain version."""
     if xh.device.type != "cuda":
         return ssd_intra_plain(xh, dt, A, Bp, Cp, chunk)
+    refuse_dtensor("ssd_intra", xh, dt, A, Bp, Cp)
     refuse_grad("ssd_intra", xh, dt, A, Bp, Cp)
     _check(xh, dt, A, Bp, Cp)
     b, s, nh, hp = xh.shape

@@ -1,6 +1,8 @@
 # Counterpart of src/repro/models/attention.py; nothing of it is left
 # unported.  `attend` with "pallas" raises (the port's kernel is "cuda"), and
-# `attend_decode` takes the kernel or the plain version by `impl`.
+# `attend_decode` takes the kernel or the plain version by `impl`.  The
+# `shard(...)` constraints are identities unless a plan is active and the
+# tensor is a DTensor (distributed/sharding.py).
 """GQA attention: reference (quadratic), chunked (streaming softmax in plain
 PyTorch, the training path's) and cuda (the hand-written kernels).
 
@@ -19,8 +21,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import AttnConfig
+from repro_torch.distributed.sharding import (from_local_part, local_part,
+                                              shard)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import gqa_out, gqa_scores
 from repro_torch.models import layers as L
@@ -110,11 +115,11 @@ def attention_specs(a: AttnConfig, d: int, layout: HeadLayout) -> Dict[str, Any]
     return specs
 
 
-def _proj(p, x, dtype):
+def _proj(p, x, heads_axes, dtype):
     y = torch.einsum("bsd,dhk->bshk", x.to(dtype), L.get_kernel(p, dtype))
     if "bias" in p:
         y = y + p["bias"].to(dtype)
-    return y
+    return shard(y, *heads_axes)
 
 
 def qkv(params, a: AttnConfig, layout: HeadLayout, x: torch.Tensor,
@@ -127,9 +132,9 @@ def qkv(params, a: AttnConfig, layout: HeadLayout, x: torch.Tensor,
     `layers.rope_tables(positions, ...)` made once by a caller that runs many
     layers at the same positions (used for k only at those positions)."""
     kv_x = x if kv_x is None else kv_x
-    q = _proj(params["wq"], x, dtype)
-    k = _proj(params["wk"], kv_x, dtype)
-    v = _proj(params["wv"], kv_x, dtype)
+    q = _proj(params["wq"], x, ("batch", "seq", "act_heads", None), dtype)
+    k = _proj(params["wk"], kv_x, ("batch", "seq", None, None), dtype)
+    v = _proj(params["wv"], kv_x, ("batch", "seq", None, None), dtype)
     if a.qk_norm:                       # before rope
         q = L.rmsnorm(params["q_norm"], q)
         k = L.rmsnorm(params["k_norm"], k)
@@ -142,6 +147,8 @@ def qkv(params, a: AttnConfig, layout: HeadLayout, x: torch.Tensor,
     if layout.repeat > 1:
         k = torch.repeat_interleave(k, layout.repeat, dim=2)
         v = torch.repeat_interleave(v, layout.repeat, dim=2)
+    k = shard(k, "batch", "kv_seq", "act_heads", None)
+    v = shard(v, "batch", "kv_seq", "act_heads", None)
     return q, k, v
 
 
@@ -151,8 +158,9 @@ def out_proj(params, layout: HeadLayout, ctx: torch.Tensor,
         mask = torch.as_tensor(layout.head_mask(), dtype=dtype,
                                device=ctx.device)
         ctx = ctx * mask[None, None, :, None]
-    return torch.einsum("bshk,hkd->bsd", ctx.to(dtype),
-                        L.get_kernel(params["wo"], dtype))
+    y = torch.einsum("bshk,hkd->bsd", ctx.to(dtype),
+                     L.get_kernel(params["wo"], dtype))
+    return shard(y, "batch", "seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +313,18 @@ def attend_decode(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
 
 def attend(impl: str, q, k, v, q_pos, k_pos, layout, *, causal, window,
            cap=0.0, q_chunk=1024, kv_chunk=1024, causal_skip=False):
+    if isinstance(q, DTensor):
+        # each (batch row, head) attends alone: run on this rank's rows and
+        # heads (the head padding keeps a shard's q heads with their kv
+        # heads), as plain tensors; DTensor cannot always fold a sharded
+        # batch of heads into its batched products
+        def part(t, dims=(0, 2)):
+            return local_part(t, q, dims)
+        out = attend(impl, part(q), part(k), part(v), part(q_pos, (0,)),
+                     part(k_pos, (0,)), layout, causal=causal,
+                     window=window, cap=cap, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk, causal_skip=causal_skip)
+        return from_local_part(out, q, (0, 2))
     if impl == "reference":
         return attend_reference(q, k, v, q_pos, k_pos, layout,
                                 causal=causal, window=window, cap=cap)

@@ -1,5 +1,8 @@
 # Counterpart of src/repro/models/decode.py: the dense, MoE, SSM, hybrid and
 # VLM families, the int8 cache included; nothing of it is left unported.
+# The `shard(...)` constraints on the written cache layers are identities
+# unless a plan is active and the layer is a DTensor (no sharded serving
+# path exists: the JAX package's engine takes no plan either).
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
@@ -29,6 +32,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
@@ -72,7 +76,8 @@ def _write_kv(k_l, v_l, k_new, v_new, lengths, index=None):
                      else index)
     k_l[rows, pos] = torch.where(ok, k_new[:, 0].to(k_l.dtype), k_l[rows, pos])
     v_l[rows, pos] = torch.where(ok, v_new[:, 0].to(v_l.dtype), v_l[rows, pos])
-    return k_l, v_l
+    return (shard(k_l, "batch", "kv_seq", "act_heads", None),
+            shard(v_l, "batch", "kv_seq", "act_heads", None))
 
 
 def _write_kv_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, lengths, index=None):
@@ -84,7 +89,10 @@ def _write_kv_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, lengths, index=None):
         q, sc = KC.quantize_kv(new[:, 0])
         dst[rows, pos] = torch.where(ok, q, dst[rows, pos])
         scl[rows, pos] = torch.where(ok[..., 0], sc, scl[rows, pos])
-    return k_l, v_l, ks_l, vs_l
+    return (shard(k_l, "batch", "kv_seq", "act_heads", None),
+            shard(v_l, "batch", "kv_seq", "act_heads", None),
+            shard(ks_l, "batch", "kv_seq", "act_heads"),
+            shard(vs_l, "batch", "kv_seq", "act_heads"))
 
 
 def _int8_cache(cfg: ArchConfig) -> bool:

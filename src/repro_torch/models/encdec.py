@@ -6,6 +6,8 @@
 # decode step writes through `decode._write_index` (an idle slot's length
 # passes the cache) and clamps the `dec_pos` row it reads, where the
 # reference's `jnp.take` fills an out-of-range row with NaN (idle rows only).
+# The `shard(...)` constraints are identities unless a plan is active and the
+# tensor is a DTensor.
 # An int8 cache is refused (`transformer.require_ported`).
 """Whisper-style encoder-decoder backbone (the audio frontend is a stub: the
 caller feeds precomputed frame embeddings [B, n_frames, d_model]).
@@ -23,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.decode import _write_index, _write_kv
@@ -106,6 +109,7 @@ def encode(params, cfg: ArchConfig, dims: ModelDims, frames) -> torch.Tensor:
     """frames: [B, n_frames, d_model] stub embeddings."""
     dt = dtype_of(cfg.compute_dtype)
     x = frames.to(dt) + params["enc_pos"].to(dt)[None]
+    x = shard(x, "batch", "seq", "act_embed")
     positions = positions_for(x[..., 0])
     for p in unstack(params["enc_layers"], cfg.n_enc_layers):
         x = enc_layer(p, cfg, dims, x, positions, dt)
@@ -113,8 +117,8 @@ def encode(params, cfg: ArchConfig, dims: ModelDims, frames) -> torch.Tensor:
 
 
 def _cross_kv(p, cfg, dims, enc_out, dt):
-    k = A._proj(p["wk"], enc_out, dt)
-    v = A._proj(p["wv"], enc_out, dt)
+    k = A._proj(p["wk"], enc_out, ("batch", None, None, None), dt)
+    v = A._proj(p["wv"], enc_out, ("batch", None, None, None), dt)
     if dims.layout.repeat > 1:
         k = torch.repeat_interleave(k, dims.layout.repeat, dim=2)
         v = torch.repeat_interleave(v, dims.layout.repeat, dim=2)
@@ -122,7 +126,7 @@ def _cross_kv(p, cfg, dims, enc_out, dt):
 
 
 def _cross_attend(p, cfg, dims, x, k, v, dt):
-    q = A._proj(p["wq"], x, dt)
+    q = A._proj(p["wq"], x, ("batch", "seq", "act_heads", None), dt)
     q_pos = positions_for(q[..., 0, 0])
     k_pos = positions_for(k[..., 0, 0])
     ctx = A.attend_reference(q, k, v, q_pos, k_pos, dims.layout,
@@ -147,7 +151,8 @@ def dec_layer(p, cfg, dims, x, positions, enc_out, dt):
 def _embed_target(params, cfg, dims, tokens, dt):
     s = tokens.shape[1]
     x = L.embed_lookup(params["embed"], tokens, dt)
-    return x + params["dec_pos"][:s].to(dt)[None]
+    x = x + params["dec_pos"][:s].to(dt)[None]
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def _logits(params, cfg, dims, x, dt, *, mask: bool = True):
@@ -155,7 +160,7 @@ def _logits(params, cfg, dims, x, dt, *, mask: bool = True):
     if mask and dims.vocab_pad > cfg.vocab_size:
         ok = torch.arange(dims.vocab_pad, device=x.device) < cfg.vocab_size
         logits = torch.where(ok[None, None], logits, -1e30)
-    return logits
+    return shard(logits, "batch", "seq", "act_vocab")
 
 
 def encdec_forward(params, cfg: ArchConfig, dims: ModelDims, tokens,

@@ -1,5 +1,6 @@
-# Counterpart of src/repro/models/kvcache.py.  Not ported: the sharding
-# helpers (`CACHE_AXES`, `shard_cache`, `cache_specs`: one device here).
+# Counterpart of src/repro/models/kvcache.py; nothing of it is left
+# unported.  `shard_cache` and the `shard(...)` of `update_layer_kv` are
+# identities unless a plan is active and the tensors are DTensors.
 """KV cache (decoder self-attention) + recurrent SSM state.
 
 Layout: stacked over layers, ``k``/``v``: [L, B, S_max, KVp, hd]; SSM state
@@ -19,6 +20,19 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard
+
+CACHE_AXES = {
+    "k": (None, "batch", "kv_seq", "act_heads", None),
+    "v": (None, "batch", "kv_seq", "act_heads", None),
+    "k_scale": (None, "batch", "kv_seq", "act_heads"),
+    "v_scale": (None, "batch", "kv_seq", "act_heads"),
+    "cross_k": (None, "batch", None, "act_heads", None),
+    "cross_v": (None, "batch", None, "act_heads", None),
+    "ssm": (None, "batch", "act_heads", None, None),
+    "conv": (None, "batch", None, "ssm_inner"),
+    "length": ("batch",),
+}
 
 
 def quantize_kv(x: torch.Tensor):
@@ -67,6 +81,14 @@ def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
     return cache
 
 
+def shard_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: shard(v, *CACHE_AXES[k]) for k, v in cache.items()}
+
+
+def cache_specs(cache: Dict[str, Any], plan) -> Dict[str, Any]:
+    return {k: plan.spec(CACHE_AXES[k]) for k in cache}
+
+
 def update_layer_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor, index: int):
     """Write k_new/v_new ([B,s,KVp,hd]) at position ``index``, in place.
@@ -76,4 +98,5 @@ def update_layer_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,
     i = max(0, min(int(index), k_layer.shape[1] - s))
     k_layer[:, i:i + s].copy_(k_new)
     v_layer[:, i:i + s].copy_(v_new)
-    return k_layer, v_layer
+    return (shard(k_layer, "batch", "kv_seq", "act_heads", None),
+            shard(v_layer, "batch", "kv_seq", "act_heads", None))

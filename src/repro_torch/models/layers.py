@@ -16,6 +16,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import lookup_rows
 
 Params = Dict[str, Any]
 
@@ -246,7 +249,10 @@ def quantize_params(params, axes=None):
 def embed_lookup(params: Params, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
     # gather first, cast after: the same values as casting the whole table
-    return params["embedding"][tokens].to(compute_dtype)
+    table = params["embedding"]
+    if isinstance(table, DTensor) or isinstance(tokens, DTensor):
+        return lookup_rows(table, tokens).to(compute_dtype)
+    return table[tokens].to(compute_dtype)
 
 
 def unembed(params: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:

@@ -1,6 +1,8 @@
 # Counterpart of src/repro/models/model_zoo.py: every family, with int8
-# weights and cache.  Not ported yet: the dry-run's input specs
-# (`input_specs`, `cache_specs_struct`; ROADMAP.md, Queue A, item 6).
+# weights and cache, under a sharding plan.  Not ported yet: the dry-run's
+# input specs (`input_specs`, `cache_specs_struct`; ROADMAP.md, Queue A,
+# item 6).  `cross_entropy` of DTensor logits gathers the vocabulary first
+# (`_cross_entropy_sharded`); the reference leaves that to its partitioner.
 """Unified model facade: build an architecture, expose init / loss /
 forward / prefill / decode plus cache construction.
 
@@ -14,6 +16,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
@@ -34,17 +37,51 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The max is detached where it shifts the logits and not where it is added
     back, as in the reference, so the gradients are the reference's.  The
     correct-class logit is gathered (a one-hot over the vocabulary would be
-    an int64 tensor of 2.5 GB at qwen3-1.7b's train shape)."""
+    an int64 tensor of 2.5 GB at qwen3-1.7b's train shape).  DTensor
+    logits take `_cross_entropy_sharded`."""
+    if isinstance(logits, DTensor):
+        return _cross_entropy_sharded(logits, labels, z_loss=z_loss)
+    nll, lse = _nll_lse(logits, labels)
+    return _ce_loss(nll, lse, z_loss), nll
+
+
+def _nll_lse(logits, labels):
     lf = logits.float()
     m = torch.amax(lf, dim=-1, keepdim=True)
     shifted = lf - m.detach()
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
     correct = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - correct
+    return lse - correct, lse
+
+
+def _ce_loss(nll, lse, z_loss: float):
     loss = torch.mean(nll)
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))
-    return loss, nll
+    return loss
+
+
+def _cross_entropy_sharded(logits: DTensor, labels, *, z_loss: float):
+    """CE of DTensor logits.  The vocabulary is gathered: each mesh dim keeps
+    its shard of the batch or sequence dims and replicates the vocab dim.
+    Then each rank computes the per-token nll and log-sum-exp of its local
+    rows with the plain code above, so values and gradients are the
+    reference's, the detached max included; the means run on the DTensors
+    (a sum over the ranks)."""
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) and p.dim < last else Replicate()
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, pl)
+    nll_l, lse_l = _nll_lse(logits.to_local(), labels.to_local())
+    nll, lse = (DTensor.from_local(t, mesh, pl, run_check=False,
+                                   shape=labels.shape, stride=labels.stride())
+                for t in (nll_l, lse_l))
+    return _ce_loss(nll, lse, z_loss), nll
 
 
 def model_specs(cfg: ArchConfig, dims: ModelDims):
@@ -164,10 +201,9 @@ class Model:
 
 def build_model(cfg: ArchConfig, plan=None, *,
                 device: DeviceLike = None) -> Model:
-    """``device=None`` means the card; ``device="cpu"`` must be asked for."""
-    if plan is not None:
-        raise NotImplementedError(
-            "sharding plans are not ported yet (ROADMAP.md, Queue A: "
-            "distributed)")
+    """``device=None`` means the card; ``device="cpu"`` must be asked for.
+    Under a ``plan`` the head and vocab padding follow its tensor-parallel
+    size, as the reference's."""
     T.require_ported(cfg)
-    return Model(cfg, ModelDims.make(cfg, 1), resolve_device(device))
+    tp = plan.tp_size if plan is not None else 1
+    return Model(cfg, ModelDims.make(cfg, tp), resolve_device(device))

@@ -1,8 +1,16 @@
-# Counterpart of src/repro/models/moe.py.  Not ported yet: the `shard(...)`
-# constraints on the expert buffers and the output (identities on one device;
-# ROADMAP.md, Queue A, item 'Distributed').  Router jitter is drawn from a
-# `torch.Generator`, where the reference draws from a threefry key: the
-# values differ, the rule (normal noise times `router_jitter`) does not.
+# Counterpart of src/repro/models/moe.py; nothing of it is left unported.
+# Router jitter is drawn from a `torch.Generator`, where the reference draws
+# from a threefry key: the values differ, the rule (normal noise times
+# `router_jitter`) does not.  Under a sharding plan (DTensor activations) the
+# dispatch is redistributed around: DTensor has no sharding strategy for
+# `searchsorted`, and the scatter (`index_add_`) and the gather back index a
+# dim that the experts' sharding splits.  So `dispatch_indices`, the scatter
+# and the combine run on each rank's own batch rows with every expert
+# whole (`local_part`: an all-gather of the expert outputs over "model"),
+# per batch row as the reference's dispatch is; the expert buffers between
+# them are DTensors under the reference's `shard(...)` constraints, and
+# the expert products run as DTensor ops.  The router's statistics come
+# back as sums over the ranks' rows.
 """Mixture-of-Experts layer: top-k routing, capacity-bounded sorted dispatch.
 
 Dispatch is *per batch row* (buffers [B, E, C, d]), as in the reference:
@@ -28,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.distributed.sharding import (from_local_part, local_part,
+                                              shard)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
 
@@ -123,40 +133,49 @@ def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
             rng: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = cfg.moe
-    b, s, d = x.shape
+    s, d = x.shape[1:]
     cap = capacity(s, m)
     dtype = x.dtype
 
     top_e, top_g, aux = route(params["router"], x, m, rng)
-    slot, keep = dispatch_indices(top_e, m.top_k, m.n_experts, cap)
+    # this rank's batch rows (all of them on one device)
+    x_l, e_l, g_l = (local_part(t, x) for t in (x, top_e, top_g))
+    bl = x_l.shape[0]
+    slot, keep = dispatch_indices(e_l, m.top_k, m.n_experts, cap)
 
     # scatter tokens into the expert buffers [B, E*cap, d]
-    tok = torch.repeat_interleave(x, m.top_k, dim=1)           # [B, S*k, d]
-    rows = torch.arange(b, device=x.device)[:, None] * (m.n_experts * cap)
-    buf = torch.zeros((b * m.n_experts * cap, d), dtype=dtype,
+    tok = torch.repeat_interleave(x_l, m.top_k, dim=1)         # [B, S*k, d]
+    rows = torch.arange(bl, device=x.device)[:, None] * (m.n_experts * cap)
+    buf = torch.zeros((bl * m.n_experts * cap, d), dtype=dtype,
                       device=x.device)
     wmask = keep[..., None].to(dtype)
     buf.index_add_(0, (rows + slot).reshape(-1),
                    (tok * wmask).reshape(-1, d))
-    out_buf = expert_mlp(params, cfg, buf.reshape(b, m.n_experts, cap, d))
-    out_buf = out_buf.reshape(b, m.n_experts * cap, d)
+    buf = from_local_part(buf.reshape(bl, m.n_experts, cap, d), x)
+    buf = shard(buf, "batch", "experts", None, None)
+    out_buf = expert_mlp(params, cfg, buf)
+    out_buf = shard(out_buf, "batch", "experts", None, None)
+    out_buf = local_part(out_buf, x).reshape(bl, m.n_experts * cap, d)
 
     # gather back and combine with the gates
-    gathered = torch.gather(out_buf, 1, slot[..., None].expand(b, -1, d))
+    gathered = torch.gather(out_buf, 1, slot[..., None].expand(bl, -1, d))
     gathered = gathered * (keep[..., None].to(dtype) *
-                           top_g.reshape(b, -1)[..., None].to(dtype))
-    y = torch.sum(gathered.reshape(b, s, m.top_k, d), dim=2)
+                           g_l.reshape(bl, -1)[..., None].to(dtype))
+    y = from_local_part(torch.sum(gathered.reshape(bl, s, m.top_k, d), dim=2),
+                        x)
 
     if m.n_shared_experts:
         y = y + L.mlp(params["shared"], x, cfg.act, dtype)
 
     # ---- dynamic Nugget-signature entries -------------------------------
-    flat = top_e.reshape(-1)
-    aux["expert_tokens"] = torch.zeros(
-        (m.n_experts,), dtype=torch.int32, device=x.device).index_add_(
+    flat = e_l.reshape(-1)
+    counts = torch.zeros((m.n_experts,), dtype=torch.int32,
+                         device=x.device).index_add_(
         0, flat, torch.ones_like(flat, dtype=torch.int32))      # [E]
-    aux["dropped_tokens"] = torch.sum(~keep).to(torch.int32)
-    return y, aux
+    aux["expert_tokens"] = from_local_part(counts, x, partial=True)
+    aux["dropped_tokens"] = from_local_part(
+        torch.sum(~keep).to(torch.int32), x, partial=True)
+    return shard(y, "batch", "seq", "act_embed"), aux
 
 
 def layer_generator(rng: Optional[torch.Generator], layer: int

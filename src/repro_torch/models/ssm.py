@@ -1,5 +1,6 @@
-# Counterpart of src/repro/models/ssm.py.  Nothing of it is left unported
-# but the `shard(...)` constraints (identities on one device).  Each
+# Counterpart of src/repro/models/ssm.py; nothing of it is left unported.
+# The `shard(...)` constraints are identities unless a plan is active and the
+# tensor is a DTensor (distributed/sharding.py).  Each
 # `lax.scan` is a Python loop; the three-operand einsums of `ssd_chunked`
 # are written as the pairwise products that the reference's jaxpr holds.
 """Mamba2 (state-space duality) block: chunked SSD scan, reference recurrence,
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd import chunking, pad_steps
 from repro_torch.models import layers as L
@@ -90,7 +92,8 @@ def _project(params, cfg, x, dtype, conv_state=None):
     Bp, st_B = _causal_conv(Bp, params["conv_B"].to(dtype), cB)
     Cp, st_C = _causal_conv(Cp, params["conv_C"].to(dtype), cC)
     dt = F.softplus(dt + params["dt_bias"].float())
-    xin = xin.reshape(*xin.shape[:-1], nh, s.head_dim)
+    xin = shard(xin.reshape(*xin.shape[:-1], nh, s.head_dim),
+                "batch", "seq", "act_heads", None)
     return z, xin, Bp, Cp, dt, (st_x, st_B, st_C)
 
 
@@ -100,7 +103,7 @@ def _finish(params, cfg, y, xh, dt_unused, z, dtype):
     y = y.reshape(*y.shape[:-2], d_inner).to(dtype)
     y = y * F.silu(z)
     y = L.rmsnorm(params["norm"], y, cfg.norm_eps)
-    return L.dense(params["wo"], y, dtype)
+    return shard(L.dense(params["wo"], y, dtype), "batch", "seq", "act_embed")
 
 
 def a_of(params) -> torch.Tensor:

@@ -1,8 +1,9 @@
 # Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM,
 # hybrid and VLM families (the enc-dec family is models/encdec.py).  Not
-# ported: `remat="selective"` (no config of the repo uses it) and the
-# `shard(...)` constraints (identities on one device).  The router's `rng` is
-# a `torch.Generator` (see models/moe.py).
+# ported: `remat="selective"` (no config of the repo uses it).  The
+# `shard(...)` constraints are identities unless a plan is active and the
+# tensor is a DTensor (distributed/sharding.py).  The router's `rng` is a
+# `torch.Generator` (see models/moe.py).
 """Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
@@ -28,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -218,7 +220,10 @@ def _ffn(p, cfg, h, *, aux: Dict, rng=None):
 
 def _mlp_block(p, cfg, x, *, plus_one: bool, aux: Dict, rng=None):
     h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
-    return x + _ffn(p, cfg, h, aux=aux, rng=rng)
+    y = _ffn(p, cfg, h, aux=aux, rng=rng)
+    if "moe" not in p:
+        y = shard(y, "batch", "seq", "act_embed")
+    return x + y
 
 
 def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
@@ -230,7 +235,8 @@ def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
                                  plus_one=plus_one, rope=rope)
         h2 = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
         y = _ffn(p, cfg, h2, aux=aux, rng=rng)
-        return x + (attn_out + y), kv, aux
+        x = x + (attn_out + y)
+        return shard(x, "batch", "seq", "act_embed"), kv, aux
     x, kv = _attn_block(p, cfg, dims, x, positions, window,
                         plus_one=plus_one, aux=aux, rope=rope)
     x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux, rng=rng)
@@ -336,7 +342,7 @@ def _shared_attn_block(params, cfg, dims, x, positions, *, collect_kv=False,
                    q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     x = x + A.out_proj(p["attn"], dims.layout, ctx, dt)
     h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-    x = x + L.mlp(p["mlp"], h, cfg.act, dt)
+    x = x + shard(L.mlp(p["mlp"], h, cfg.act, dt), "batch", "seq", "act_embed")
     return x, (k, v) if collect_kv else None
 
 
@@ -380,7 +386,7 @@ def embed_tokens(params, cfg: ArchConfig, dims: ModelDims, tokens,
         pe = L.dense(params["patch_proj"], patch_embeds.to(dt), dt)
         x = (torch.cat([pe, x[:, cfg.n_patches:]], dim=1)
              if x.shape[1] > cfg.n_patches else pe[:, :x.shape[1]])
-    return x
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def unembed(params, cfg: ArchConfig, dims: ModelDims, x):
@@ -389,6 +395,7 @@ def unembed(params, cfg: ArchConfig, dims: ModelDims, x):
         logits = L.unembed(params["embed"], x, dt)
     else:
         logits = L.dense(params["lm_head"], x, dt)
+    logits = shard(logits, "batch", "seq", "act_vocab")
     if dims.vocab_pad > cfg.vocab_size:
         mask = torch.arange(dims.vocab_pad, device=x.device) < cfg.vocab_size
         logits = torch.where(mask[None, None], logits, -1e30)

@@ -1,7 +1,9 @@
-# Counterpart of src/repro/optim/adamw.py.  Not ported yet: `opt_state_axes`
-# (sharding axes have no use on one device).  Where the reference returns new
-# trees (and `jax.jit` donates the old buffers), `adamw_update` updates the
-# parameters and the optimizer state in place.
+# Counterpart of src/repro/optim/adamw.py; nothing of it is left unported.
+# Where the reference returns new trees (and `jax.jit` donates the old
+# buffers), `adamw_update` updates the parameters and the optimizer state in
+# place.  On DTensor leaves (a sharded train state) it runs leaf by leaf as
+# DTensor ops; the global norm is read with an explicit `full_tensor()` of
+# each leaf's sum of squares, and the step stays a plain tensor.
 """AdamW with bf16 params + f32 master copy & moments.
 
 The update runs leaf by leaf after one global norm, so at most one leaf's
@@ -15,6 +17,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import to_plain
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -38,7 +41,9 @@ class OptState(NamedTuple):
 
 def init_opt_state(params, cfg: AdamWConfig) -> OptState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor leaf gets moments with its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                requires_grad=False)
 
     if cfg.use_master:
         master = tree_map(lambda p: p.detach().float().clone(), params)
@@ -52,8 +57,10 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (no f32 copy of a
-    bf16 leaf is kept)."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    bf16 leaf is kept).  A DTensor leaf's sum is gathered to a plain scalar
+    (a collective), so the norm is a plain tensor."""
+    sq = [to_plain(torch.sum(torch.square(x.float())))
+          for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -99,3 +106,9 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig,
         if w is not p:
             p.copy_(w)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_axes(param_axes, cfg: AdamWConfig):
+    """Logical axes for the optimizer state (mirrors param sharding)."""
+    empty = tree_map(lambda a: a if cfg.use_master else (None,), param_axes)
+    return OptState((), param_axes, param_axes, empty)

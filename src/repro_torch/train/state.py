@@ -1,7 +1,10 @@
 # Counterpart of src/repro/train/state.py; nothing of it is left unported.
 # `jax.jit` and its donated buffers become a step that updates the state in
 # place; `init_train_state` also takes ready parameters (converted from the
-# JAX package, or restored).
+# JAX package, or restored).  A state whose parameters are DTensors (put on a
+# mesh by `distributed.sharding.distribute`) takes the same step: its loss
+# and gradients run in `sharded_region`, and the loss and the aux values come
+# back as plain tensors (full on every rank), so the meter stays plain.
 """Train state + step construction (the Trainer wires I/O).
 
 ``TrainState.rng`` is the reference's PRNG key carried as an opaque uint32[2]
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.core.meter import init_meter, static_increment, tick_step
 from repro_torch.core.registry import BlockTable
+from repro_torch.distributed.sharding import sharded_region, to_plain
 from repro_torch.models.layers import tree_leaves
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
@@ -81,10 +85,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, lr_fn: Callable,
 
     def grads_of(params, batch, rng):
         leaves = tree_leaves(params)
-        with torch.enable_grad():
+        with torch.enable_grad(), sharded_region(params):
             loss, aux = model.loss(params, batch, rng=rng)
             grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+        return (to_plain(loss.detach()),
+                {k: to_plain(v.detach()) for k, v in aux.items()}, grads)
 
     def unflatten(params, leaves):
         it = iter(leaves)

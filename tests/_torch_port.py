@@ -1,16 +1,13 @@
 """Helpers shared by the tests of the PyTorch port: numpy inputs from a seed
-handed to both packages, and parameters of the JAX package converted into the
-port's."""
+handed to both packages, parameters of the JAX package converted into the
+port's, and a runner of spawned process groups.  JAX is imported inside the
+functions that need it, so that a spawned rank, which imports this module to
+run, does not load it."""
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from repro.configs import get_config as jx_get_config
-from repro.configs import reduced as jx_reduced
-from repro.models.model_zoo import build_model as jx_build_model
 from repro_torch.configs import get_config as pt_get_config
 from repro_torch.configs import reduced as pt_reduced
 from repro_torch.convert import params_from_numpy
@@ -24,6 +21,7 @@ SSM_ARCHS = {"mamba2-780m": {}, "zamba2-1.2b": dict(n_layers=5)}
 
 
 def to_jax(a: np.ndarray, bf16: bool = False):
+    import jax.numpy as jnp
     x = jnp.asarray(a)
     return x.astype(jnp.bfloat16) if bf16 else x
 
@@ -51,6 +49,11 @@ def assert_close_to_scale(got, want, tol: float = 2e-4) -> None:
 def model_pair(arch: str, jax_impl: str = "pallas", **reduce_kw):
     """(jax cfg, jax model, jax params, port cfg, port model, port params) at
     the reduced size, the port's parameters converted from the JAX ones."""
+    import jax
+
+    from repro.configs import get_config as jx_get_config
+    from repro.configs import reduced as jx_reduced
+    from repro.models.model_zoo import build_model as jx_build_model
     jcfg = dataclasses.replace(jx_reduced(jx_get_config(arch), **reduce_kw),
                                attention_impl=jax_impl)
     jmodel = jx_build_model(jcfg)
@@ -60,3 +63,74 @@ def model_pair(arch: str, jax_impl: str = "pallas", **reduce_kw):
     pparams = params_from_numpy(jax.tree.map(np.asarray, jparams), pcfg,
                                 device="cpu")
     return jcfg, jmodel, jparams, pcfg, pmodel, pparams
+
+
+def run_ranks(target, world: int, *args, timeout: float = 240.0) -> list:
+    """Run ``target(rank, world, init_file, *args)`` in ``world`` spawned
+    processes that meet at a ``file://`` store in a fresh temporary
+    directory (no fixed port), and return each rank's return value, in
+    rank order.  The target must be a module-level function of a module
+    that the children can import, and its return value picklable.  A rank
+    that raises fails the call with its traceback; a group that has not
+    finished after ``timeout`` seconds (a rank stuck in a collective) is
+    killed and fails it too."""
+    import multiprocessing as mp
+    import os
+    import queue as queue_mod
+    import tempfile
+    import time
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as d:
+        init_file = os.path.join(d, "store")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(target, r, world, init_file, args,
+                                   results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        out, deadline = {}, time.monotonic() + timeout
+        try:
+            while len(out) < world:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"{world} ranks did not finish in {timeout} s; "
+                        f"done: {sorted(out)}")
+                try:
+                    rank, ok, value = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [p for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead and len(out) < world:
+                        raise RuntimeError(
+                            f"rank process exited with {dead[0].exitcode}")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{value}")
+                out[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    return [out[r] for r in range(world)]
+
+
+def _rank_main(target, rank, world, init_file, args, results):
+    """A spawned rank: one CPU thread (the ranks share the host's cores),
+    the target's value or its traceback onto the queue, the process group
+    destroyed at the end."""
+    import traceback
+    torch.set_num_threads(1)
+    try:
+        value = target(rank, world, init_file, *args)
+        results.put((rank, True, value))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()

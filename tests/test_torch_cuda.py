@@ -110,6 +110,23 @@ def test_kernels_refuse_tensors_that_require_grad(smoke):
 
 
 @pytest.mark.cuda
+def test_kernels_refuse_cuda_dtensors(smoke, tmp_path):
+    """A CUDA DTensor passes the wrappers' device check; each wrapper raises,
+    by name, before it reads a pointer, and nothing launches (an NCCL group
+    of one rank)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    assert init_process_group(str(tmp_path / "store"), 0, 1) == "nccl"
+    try:
+        out = smoke.kernels_refuse_dtensor(make_host_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert set(out) == {"flash_attention", "flash_decode", "ssd_intra"}
+    for name, msg in out.items():
+        assert name in msg and "DTensor" in msg
+
+
+@pytest.mark.cuda
 def test_moe_serving_path_runs_the_attention_kernels(smoke):
     """A small MoE (olmoe-1b-7b reduced, head_dim 64, f32) served on the
     card: every prefill runs K1 and every decode step K2 in each layer, by

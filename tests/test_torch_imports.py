@@ -50,7 +50,11 @@ def test_sources_were_found():
             "profile_store.py", "validate.py", "faults.py", "store.py",
             "journal.py", "scheduler.py", "stages.py", "runtime.py",
             "pipeline.py", "obs.py", "moe.py", "encdec.py", "packing.py",
-            "loader.py"} <= names
+            "loader.py", "sharding.py", "mesh.py", "grad_compress.py"} <= names
+    for rel in ("distributed/__init__.py", "distributed/sharding.py",
+                "distributed/pipeline.py", "distributed/faults.py",
+                "launch/mesh.py", "optim/grad_compress.py"):
+        assert (PKG / rel).exists(), rel
     assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_attention_tc.cu").exists()
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
