@@ -37,7 +37,14 @@ optimizer state placed by the training plan) against the plain step from
 the same parameters, the int8 ``compressed_psum`` of a gradient tree,
 ``meter_psum``, an elastic restore onto the mesh, ``gpipe`` at one stage,
 the fault-injected training run at the reduced size, and every kernel
-wrapper refusing a DTensor.
+wrapper refusing a DTensor.  Then the dry-run phase: seven cells of the
+dry-run's grid, each in a process of its own on fake CUDA tensors (as rank 0
+of a fake process group of the production mesh's 256 or 512 ranks), their
+roofline rows (priced with the H100 datasheet's figures), and the one-card
+check: the train configuration, a decode step and a prefill priced on a
+(1, 1) mesh of this card, whose bytes per device must equal what the card
+allocates for the same trees and whose roofline bound must not exceed the
+device-busy time that torch.profiler measures for the same step.
 
 Every phase prints one JSON object on a line of its own.  The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
@@ -58,8 +65,9 @@ down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
 times K1, K2 and K3 with every tile choice their launch plans choose from.
 ``--phases device,train`` runs the training phase (the MoE train check
 included) alone,
-``--phases device,pipeline`` the pipeline phase, and
-``--phases device,distributed`` the distributed phase.
+``--phases device,pipeline`` the pipeline phase,
+``--phases device,distributed`` the distributed phase, and
+``--phases device,dryrun`` the dry-run phase.
 """
 from __future__ import annotations
 
@@ -2277,6 +2285,249 @@ def fault_injected_run(ck_dir) -> dict:
 # whisper-tiny's prefill runs its encoder over 1500 frames (K1 not causal)
 # and 64 prompt tokens; internvl2-76b's 512 positions start with its 256
 # patch positions.
+# The dry-run phase: one cell per family on the single mesh and one train
+# cell on the multi mesh, each in a process of its own (a fake process group
+# of 256 or 512 ranks takes its process), all at once, on fake CUDA tensors.
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+                ("qwen3-1.7b", "decode_32k", "single"),
+                ("olmoe-1b-7b", "prefill_32k", "single"),
+                ("mamba2-780m", "long_500k", "single"),
+                ("zamba2-1.2b", "train_4k", "single"),
+                ("whisper-tiny", "decode_32k", "single"),
+                ("qwen3-1.7b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 140          # the phase's budget is 150 s
+# The one-card check's cells: the train configuration (TRAIN_BATCH x
+# TRAIN_SEQ, remat, microbatch 1) and the serving smoke configuration (a
+# decode step of batch 8 over a cache of 1024, and one prefill of 256
+# tokens), on a (1, 1) mesh of this card.
+SERVE_PREFILL = 256
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensor_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _active_blocks() -> dict:
+    """The caching allocator's allocated blocks: address -> (block size,
+    the size that was asked for)."""
+    return {b["address"]: (b["size"], b["requested_size"])
+            for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+            if b["state"] == "active_allocated"}
+
+
+def _allocated_by(build):
+    """(the tree ``build()`` returns, what the card allocated for it: the
+    increase of `memory_allocated`, the bytes its new blocks asked for and
+    their block sizes, its tensor leaves)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before, m0 = _active_blocks(), torch.cuda.memory_allocated()
+    tree = build()
+    torch.cuda.synchronize()
+    new = [v for a, v in _active_blocks().items() if a not in before]
+    return tree, {"increase": torch.cuda.memory_allocated() - m0,
+                  "requested": sum(r for _, r in new),
+                  "blocks": sum(b for b, _ in new),
+                  "leaves": len(_tensor_leaves(tree))}
+
+
+def _bytes_check(name, predicted, alloc, host_bytes=0) -> dict:
+    """The dry-run's bytes against what the card allocated for the same
+    tree.  The bytes the new blocks asked for equal the prediction (less
+    ``host_bytes``, a leaf the port keeps on the host), and the increase of
+    `memory_allocated` is those blocks' sizes: the allocator's rounding,
+    512 B a block, or the remainder of a large-pool block of 1 MiB or less,
+    which it does not split off."""
+    assert alloc["requested"] == predicted - host_bytes, (name, predicted,
+                                                          alloc)
+    assert alloc["increase"] == alloc["blocks"], (name, alloc)
+    return {"predicted": predicted, **alloc,
+            "increase_minus_predicted": alloc["increase"] - predicted}
+
+
+def _bound_check(name, cell, measured_ms) -> dict:
+    """The roofline's bound of ``cell`` against the card's device-busy
+    time of the same work: a bound above the measurement means the dry-run
+    counted work that the step does not do."""
+    from repro_torch.launch.roofline import analyze_cell
+    row = analyze_cell(cell)
+    bound_ms = max(row["compute_s"], row["memory_s"],
+                   row["collective_s"]) * 1e3
+    assert bound_ms <= measured_ms, (name, bound_ms, measured_ms, row)
+    return {"bound_ms": bound_ms, "dominant": row["dominant"],
+            "measured_device_busy_ms": measured_ms,
+            "bound_over_measured": bound_ms / measured_ms}
+
+
+def one_card_check(tmp) -> dict:
+    """The dry-run held against this card at one rank.  Each cell is priced
+    by `dryrun.run_cell` on a (data 1, model 1) mesh of the card (NCCL at
+    world size 1); then the port builds the same trees on the card, and the
+    bytes per device must equal the increase of `memory_allocated` (within
+    the allocator's rounding of each leaf), and the roofline's bound must
+    not exceed the device-busy time that torch.profiler measures for the
+    same step: the train step (chunked impls, as the dry-run prices it), a
+    decode step and a prefill with the kernels (K2 and K1 once a layer,
+    counted).  The bytes are held exactly against what the allocator's new
+    blocks asked for; the increase of `memory_allocated` is those blocks'
+    sizes (`_bytes_check`)."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.blocks_lm import build_block_table
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    shapes = {"train": ShapeConfig("smoke_train", "train", TRAIN_SEQ,
+                                   TRAIN_BATCH),
+              "decode": ShapeConfig("smoke_decode", "decode", 1024, 8),
+              "prefill": ShapeConfig("smoke_prefill", "prefill",
+                                     SERVE_PREFILL, 1)}
+    init_process_group(os.path.join(tmp, "dryrun_store"), 0, 1,
+                       timeout_s=300)
+    try:
+        mesh = make_host_mesh(model=1)
+        cells = {k: run_cell(TRAIN_ARCH, shp, "host", mesh=mesh,
+                             **({"remat": "full", "microbatch_override": 1}
+                                if k == "train" else {}))
+                 for k, shp in shapes.items()}
+    finally:
+        dist.destroy_process_group()
+    out = {"cells": {k: {f: c[f] for f in (
+        "tp", "dp", "trace_flops_global", "flops", "lower_s")}
+        for k, c in cells.items()}}
+    gen = torch.Generator(device="cuda")
+
+    # ---- the train state, and the train step's device time -------------
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attention_impl="chunked",
+                              ssm_impl="chunked", remat="full")
+    model = build_model(cfg)
+    table = build_block_table(model, shapes["train"])
+    opt = AdamWConfig(lr=TRAIN_LR)
+    state, alloc = _allocated_by(lambda: init_train_state(
+        model, gen.manual_seed(0), opt, table))
+    out["train_state_bytes"] = _bytes_check(          # rng: uint32[2] on
+        "train state", cells["train"]["state_bytes_per_device"], alloc,
+        host_bytes=state.rng.nbytes)                  # the host
+
+    step = make_train_step(model, opt, constant(TRAIN_LR), table=table)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+    step(state, batch)                              # first-call set-up
+    trace = train_step_trace(lambda: step(state, batch))
+    out["train_step"] = _bound_check("train step", cells["train"],
+                                     trace["device_busy_ms"])
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the serving parameters and caches; a decode step and a prefill -
+    cfg = get_config(TRAIN_ARCH)                    # the kernels' impls
+    model = build_model(cfg)
+    params, alloc = _allocated_by(lambda: model.init(gen.manual_seed(0)))
+    for k in ("decode", "prefill"):
+        out[f"{k}_params_bytes"] = _bytes_check(
+            f"{k} params", cells[k]["params_bytes_per_device"], alloc)
+    caches = {}
+    for k, shp in shapes.items():
+        if k != "train":
+            caches[k], alloc = _allocated_by(
+                lambda: model.init_cache(shp.global_batch, shp.seq_len))
+            out[f"{k}_cache_bytes"] = _bytes_check(
+                f"{k} cache", cells[k]["cache_bytes_per_device"], alloc)
+    tok = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PREFILL),
+                           generator=gen, device="cuda")
+
+    def decode():
+        caches["decode"]["length"].fill_(SERVE_PREFILL + 40)
+        model.decode_step(params, tok, caches["decode"])
+
+    def prefill():
+        model.prefill(params, {"tokens": prompt}, caches["prefill"])
+
+    # the main path: counters to 0 just before, read just after
+    reset_counters()
+    decode()
+    prefill()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers,
+            "ssd_intra": 0}
+    assert launches == want, (launches, want)
+    out["launches"] = launches
+    for k, fn in (("decode", decode), ("prefill", prefill)):
+        out[f"{k}_step"] = _bound_check(
+            k, cells[k], train_step_trace(fn)["device_busy_ms"])
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(tmp) -> dict:
+    """The dry-run and the roofline on the card.  (a) The cells of
+    `DRYRUN_CELLS`, each in a process of its own on fake CUDA tensors
+    (`python -m repro_torch.launch.dryrun`), all at once; (b) their
+    roofline rows, priced with the H100 datasheet's figures; (c) meanwhile
+    the one-card check (`one_card_check`).  A cell that errs fails the
+    phase."""
+    from repro_torch.launch.dryrun import cell_id
+    from repro_torch.launch.roofline import SPEC_NOTE, analyze_cell
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "dryrun_cells")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs[cell_id(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out_dir],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+    try:
+        one = one_card_check(tmp)
+        errs = {}
+        for cell, proc in procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t_phase)
+            _, err = proc.communicate(timeout=max(left, 1.0))
+            if proc.returncode != 0:
+                errs[cell] = err[-3000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert not errs, errs
+    cells, rows = [], []
+    for cell in procs:
+        with open(os.path.join(out_dir, cell + ".json")) as f:
+            c = json.load(f)
+        assert c["status"] == "ok", c
+        assert c["kernel_launches"] == {k: 0 for k in KERNELS}, c
+        cells.append({k: c.get(k) for k in (
+            "cell", "status", "tp", "dp", "eff_devices", "microbatch",
+            "microbatch_traced", "params_bytes_per_device",
+            "cache_bytes_per_device", "state_bytes_per_device",
+            "trace_flops_global", "flops", "collective_bytes",
+            "kernel_launches", "total_s")})
+        rows.append({k: v for k, v in analyze_cell(c).items()
+                     if k != "lever"})
+    out = {"cells": cells, "roofline": rows, "priced_with": SPEC_NOTE,
+           "one_card": one, "seconds": time.perf_counter() - t_phase}
+    emit("dryrun", **out)
+    launches = {k: sum(c["kernel_launches"][k] for c in cells)
+                for k in KERNELS}
+    return {f"{TRAIN_ARCH}/dryrun": launches,
+            f"{TRAIN_ARCH}/one_card": one["launches"]}
+
+
 PATHS = (("qwen3-1.7b", 256), ("qwen3-1.7b/int8", 256), ("mamba2-780m", 512),
          ("zamba2-1.2b", 512), ("olmoe-1b-7b", 256), ("whisper-tiny", 64),
          ("internvl2-76b", 512))
@@ -2310,7 +2561,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,profile,train,"
-                            "pipeline,distributed")
+                            "pipeline,distributed,dryrun")
     ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
                     help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
@@ -2349,6 +2600,9 @@ def main() -> int:
         if "distributed" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_distributed(tmp)
+        if "dryrun" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_dryrun(tmp)
         return 0
     carry = {}      # a quantized path's inputs, from its base path's run
     for path, cfg, prefill_len in paths:
@@ -2380,8 +2634,12 @@ def main() -> int:
     if "distributed" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             per_path[f"{TRAIN_ARCH}/distributed"] = phase_distributed(tmp)
+    if "dryrun" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            per_path.update(phase_dryrun(tmp))
     if checks is None or len(paths) < len(PATHS) or "train" not in phases \
-            or "pipeline" not in phases or "distributed" not in phases:
+            or "pipeline" not in phases or "distributed" not in phases \
+            or "dryrun" not in phases:
         return 0
 
     kernels = []

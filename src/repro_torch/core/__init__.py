@@ -1,6 +1,7 @@
 # Counterpart of src/repro/core/__init__.py: the same re-exports, with
 # `graph_cost` (the ATen graph's cost) where the reference has `jaxpr_cost`.
-# Not ported yet: `hlo_analysis` (ROADMAP Queue A, dry-run / roofline).
+# `hlo_analysis` analyses the per-rank program that DTensor dispatches (the
+# port has no compiled HLO); what of it is still missing, its head says.
 """Nugget for PyTorch: the paper's portable targeted-sampling framework.
 
 Pipeline (paper Fig. 1):
@@ -41,3 +42,4 @@ from repro_torch.core.profile_store import (  # noqa: F401
     cached_build, cached_finalize, load_profile, profile_cache_key,
     save_profile, stream_digest,
 )
+from repro_torch.core import hlo_analysis  # noqa: F401

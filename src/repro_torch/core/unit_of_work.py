@@ -35,6 +35,9 @@ _FREE = {
     "arange", "full", "full_like", "zeros", "zeros_like", "ones", "ones_like",
     "empty", "empty_like", "scalar_tensor", "new_empty", "new_zeros",
     "new_ones", "new_full", "getitem",
+    # collectives of a recorded per-rank program (core/hlo_analysis.py)
+    "all_reduce", "all_reduce_", "all_gather_into_tensor",
+    "reduce_scatter_tensor", "all_to_all_single", "wait_tensor",
 }
 _MATMUL = {"mm", "bmm", "addmm", "baddbmm", "matmul", "dot", "mv"}
 
@@ -107,18 +110,23 @@ class IRCost:
                       self.bytes * m)
 
 
-def graph_cost(gm: torch.fx.GraphModule) -> IRCost:
+def graph_cost(gm) -> IRCost:
+    """Cost of an ATen graph, or of a recorded program: any iterable of
+    nodes (`core.hlo_analysis.RecordedOp`)."""
     total = IRCost(0.0, 0.0, 0)
-    for node in gm.graph.nodes:
+    nodes = gm.graph.nodes if hasattr(gm, "graph") else gm
+    for node in nodes:
         if node.op != "call_function":
             continue
         total = total + IRCost(1.0, node_flops(node), 0, node_bytes(node))
     return total
 
 
-def matmul_flops(gm: torch.fx.GraphModule) -> float:
-    """FLOPs of the graph's matrix products alone."""
-    return sum(node_flops(n) for n in gm.graph.nodes if is_matmul(n))
+def matmul_flops(gm) -> float:
+    """FLOPs of the graph's (or a recorded program's) matrix products
+    alone."""
+    nodes = gm.graph.nodes if hasattr(gm, "graph") else gm
+    return sum(node_flops(n) for n in nodes if is_matmul(n))
 
 
 def trace_graph(fn: Callable, *args) -> torch.fx.GraphModule:

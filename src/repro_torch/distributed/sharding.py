@@ -20,7 +20,11 @@
 # batched product, nor place the embedding's `index_put` backward), the work
 # runs on each rank's own part as plain tensors (`local_part`,
 # `lookup_rows`): the attention core per (row, head), the embedding lookup
-# and the CE per row, the MoE dispatch per row.
+# and the CE per row, the MoE routing and dispatch per row, the SSD and the
+# decode step's state update per (row, head), the cache writes.  At the
+# production mesh's 16 ranks DTensor's strategy search also fails for weight
+# products, so those run with placements fixed here (`fsdp_gather`,
+# `sharded_product`).
 """Logical-axis → mesh-axis sharding rules.
 
 Model code annotates params and activations with *logical* axis names; the
@@ -365,6 +369,86 @@ def from_local_part(t: torch.Tensor, like: torch.Tensor,
     return DTensor.from_local(t, like.device_mesh, pl, run_check=False,
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta").stride())
+
+
+def fsdp_gather(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight gathered over every mesh dim but the active plan's
+    tensor-parallel one, before it is used: the all-gather of 2-D FSDP
+    (its gradient is the reduce-scatter).  Left to itself DTensor may pick
+    a strategy for a product with a weight sharded over its contraction dim
+    that shards the output where a later view cannot split it (at the
+    production mesh's 16 ranks a layer's 8 kv heads).  Anything but a
+    DTensor as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    plan = active_rules()
+    tp = plan.tp_axis if plan is not None else None
+    names = w.device_mesh.mesh_dim_names
+    pl = tuple(p if names[i] == tp else Replicate()
+               for i, p in enumerate(w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pl)
+
+
+def sharded_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over x's last dim and w's first (w may have more output
+    dims: [din, h, hd]), with w a DTensor: a tensor-parallel product with the
+    placements fixed here rather than left to DTensor's search.  Per mesh
+    dim: w sharded on an output dim (column-parallel) takes x replicated and
+    shards the output there; w sharded on its input dim (row-parallel) takes
+    x sharded on its last dim and leaves a partial sum; a replicated w keeps
+    x's shard of a leading (row) dim, anything else of x is gathered.  The
+    product runs on the local tensors; each gradient comes back with the
+    placement its rank's part has (a partial sum where ranks saw other rows,
+    or other output columns).  Without this, DTensor's search can shard an
+    output where a later view cannot split it, or fold a batch into a
+    strided shard it cannot propagate."""
+    mesh = w.device_mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    nx = x.ndim
+    xp, yp, gx, gw = [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(pw, Shard) and pw.dim > 0:          # column-parallel
+            xp.append(Replicate())
+            yp.append(Shard(nx - 2 + pw.dim))
+            gx.append(Partial())
+            gw.append(pw)
+        elif isinstance(pw, Shard):                       # row-parallel
+            xp.append(Shard(nx - 1))
+            yp.append(Partial())
+            gx.append(Shard(nx - 1))
+            gw.append(pw)
+        elif type(px) is Shard and px.dim < nx - 1:       # x's rows
+            xp.append(px)
+            yp.append(px)
+            gx.append(px)
+            gw.append(Partial())
+        else:
+            xp.append(Replicate())
+            yp.append(Replicate())
+            gx.append(Replicate())
+            gw.append(Replicate())
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=gx)
+    wl = w.to_local(grad_placements=gw)
+    yl = (xl.reshape(-1, xl.shape[-1]) @ wl.reshape(wl.shape[0], -1)
+          ).reshape(*xl.shape[:-1], *wl.shape[1:])
+    shape = torch.Size((*x.shape[:-1], *w.shape[1:]))
+    return DTensor.from_local(yl, mesh, yp, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def local_range(t: DTensor, dim: int) -> Tuple[int, int]:
+    """(first global index, count) of this rank's part of ``t`` along
+    ``dim``; the mesh dims that shard it split it in mesh order, evenly."""
+    coord = t.device_mesh.get_coordinate()
+    start, size = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= t.device_mesh.size(i)
+            start += coord[i] * size
+    return start, size
 
 
 def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,11 @@
 # host mesh is a `DeviceMesh` over the process group's ranks, so a process
 # group must exist first: `init_process_group` below starts one from a
 # `file://` store (no fixed port), NCCL on the card and gloo on the CPU.
+# `make_fake_mesh` is the production mesh as a `DeviceMesh` whose process
+# group is torch's fake one (rank 0 of 256 or 512; collectives move nothing),
+# on which the dry-run runs a cell's step on fake tensors.  A process holds
+# one default group, so a fake mesh takes its process for good: the dry-run
+# runs each cell in a process of its own.
 """Production mesh shapes and the host mesh of a process group."""
 from __future__ import annotations
 
@@ -33,6 +38,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return MeshShape(axes, shape)
+
+
+def make_fake_mesh(*, multi_pod: bool = False, device: DeviceLike = None):
+    """The production mesh as a ``DeviceMesh`` of the same axes, this
+    process being rank 0 of a fake process group of 256 (or 512) ranks
+    (``torch.testing._internal.distributed.fake_pg``): DTensor runs its
+    sharding propagation and issues its collectives, which move nothing.
+    On the card unless ``device="cpu"``.  Raises if a process group exists
+    already (a process holds one default group)."""
+    if dist.is_initialized():
+        raise RuntimeError("make_fake_mesh: a process group exists already; "
+                           "run each fake mesh in a process of its own")
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    prod = make_production_mesh(multi_pod=multi_pod)
+    dev = resolve_device(device)
+    world = 1
+    for n in prod.sizes:
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    return init_device_mesh(dev.type, prod.sizes,
+                            mesh_dim_names=prod.axis_names)
 
 
 def init_process_group(init_file: str, rank: int, world_size: int, *,

@@ -1,8 +1,10 @@
 # Counterpart of src/repro/models/attention.py; nothing of it is left
 # unported.  `attend` with "pallas" raises (the port's kernel is "cuda"), and
-# `attend_decode` takes the kernel or the plain version by `impl`.  The
-# `shard(...)` constraints are identities unless a plan is active and the
-# tensor is a DTensor (distributed/sharding.py).
+# `attend_decode` takes the kernel or the plain version by `impl` ("chunked"
+# decodes as "reference": the reference's decode is that plain softmax).
+# The `shard(...)` constraints are identities unless a plan is active and
+# the tensor is a DTensor (distributed/sharding.py); under a plan the
+# projections are `sharded_product`s and the attention core runs per rank.
 """GQA attention: reference (quadratic), chunked (streaming softmax in plain
 PyTorch, the training path's) and cuda (the hand-written kernels).
 
@@ -25,7 +27,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.distributed.sharding import (from_local_part, local_part,
-                                              shard)
+                                              shard, sharded_product)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import gqa_out, gqa_scores
 from repro_torch.models import layers as L
@@ -116,7 +118,9 @@ def attention_specs(a: AttnConfig, d: int, layout: HeadLayout) -> Dict[str, Any]
 
 
 def _proj(p, x, heads_axes, dtype):
-    y = torch.einsum("bsd,dhk->bshk", x.to(dtype), L.get_kernel(p, dtype))
+    w = L.get_kernel(p, dtype)
+    y = (sharded_product(x.to(dtype), w) if isinstance(w, DTensor)
+         else torch.einsum("bsd,dhk->bshk", x.to(dtype), w))
     if "bias" in p:
         y = y + p["bias"].to(dtype)
     return shard(y, *heads_axes)
@@ -158,8 +162,11 @@ def out_proj(params, layout: HeadLayout, ctx: torch.Tensor,
         mask = torch.as_tensor(layout.head_mask(), dtype=dtype,
                                device=ctx.device)
         ctx = ctx * mask[None, None, :, None]
-    y = torch.einsum("bshk,hkd->bsd", ctx.to(dtype),
-                     L.get_kernel(params["wo"], dtype))
+    w = L.get_kernel(params["wo"], dtype)
+    if isinstance(w, DTensor):          # the heads and head_dim contracted
+        y = sharded_product(ctx.to(dtype).flatten(2), w.flatten(0, 1))
+    else:
+        y = torch.einsum("bshk,hkd->bsd", ctx.to(dtype), w)
     return shard(y, "batch", "seq", "act_embed")
 
 
@@ -221,7 +228,10 @@ def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
     Loops over q blocks; for each q block loops over kv blocks carrying the
     running (max, denom, acc).  Pad positions are -1 (q) and 2**30 (k), so
     the mask removes them.  ``causal_skip`` stops each q block's loop at the
-    causal frontier (removes the ~2x masked FLOPs of the dense schedule)."""
+    causal frontier (removes the ~2x masked FLOPs of the dense schedule).
+    Without it every q block walks every kv block, so the q blocks go as one
+    (each row's arithmetic is a q block's; the reference's q loop is
+    unrolled too): the same FLOPs and values in ``nq`` times fewer calls."""
     b, sq, hp, hd = q.shape
     sk = k.shape[1]
     qc, kc = min(q_chunk, sq), min(kv_chunk, sk)
@@ -266,7 +276,8 @@ def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
         outs = [q_block(i, min(nk, ((i + 1) * qc - 1) // kc + 1))
                 for i in range(nq)]
     else:
-        outs = [q_block(i, nk) for i in range(nq)]
+        qc = nq * qc                    # read by q_block
+        outs = [q_block(0, nk)]
     return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
@@ -301,8 +312,22 @@ def attend_decode(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
     partitioner turns into flash-decode partials over a sharded cache.  On
     one GPU nothing builds them, so with ``impl="cuda"`` this **is** the
     flash-decode kernel (its plain version for a CPU tensor).  The two agree
-    for ``cache_len >= 1``, which the decode step guarantees."""
-    if impl == "reference":
+    for ``cache_len >= 1``, which the decode step guarantees.  "chunked"
+    (the training impl) decodes as "reference" does: the reference's decode
+    is that masked softmax whatever its config's impl.
+
+    DTensor inputs attend on this rank's rows and heads as plain tensors,
+    as `attend` does; a cache sharded over its sequence (long_500k) is
+    gathered for it (the reference's partitioner splits the softmax into
+    flash-decode partials there)."""
+    if isinstance(q, DTensor):
+        def part(t, dims=(0, 2)):
+            return local_part(t, q, dims)
+        out = attend_decode(part(q), part(k_cache), part(v_cache),
+                            part(cache_len, (0,)), layout, window=window,
+                            cap=cap, impl=impl)
+        return from_local_part(out, q, (0, 2))
+    if impl in ("reference", "chunked"):
         return attend_decode_plain(q, k_cache, v_cache, cache_len, layout,
                                    window=window, cap=cap)
     if impl == "cuda":

@@ -1,8 +1,10 @@
 # Counterpart of src/repro/models/decode.py: the dense, MoE, SSM, hybrid and
 # VLM families, the int8 cache included; nothing of it is left unported.
 # The `shard(...)` constraints on the written cache layers are identities
-# unless a plan is active and the layer is a DTensor (no sharded serving
-# path exists: the JAX package's engine takes no plan either).
+# unless a plan is active and the layer is a DTensor.  Under a plan (the
+# dry-run prices a prefill and a decode step so; the engine takes no plan,
+# as the JAX package's does not) a DTensor cache is written on each rank's
+# own rows, heads and sequence positions (`_write_index`, `_write_kv`).
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
@@ -30,9 +32,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import local_part, local_range, shard
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
@@ -55,27 +58,41 @@ def _merge_conv(parts) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def _write_index(lengths: torch.Tensor, capacity: int):
-    """(rows, pos, ok) of a step's per-row cache write, made once per step.
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _write_index(lengths: torch.Tensor, like: torch.Tensor):
+    """(rows, pos, ok) of a step's per-row cache write, made once per step,
+    for cache layers like ``like`` ([B, S, ...]).
 
     A row whose length is at or beyond the cache's capacity (a finished or
     never-used slot keeps counting) must write nothing: the reference's
     scatter drops out-of-range indices, while an out-of-range index on CUDA
     is a device-side assert.  So the position is clamped and ``ok`` marks
-    the rows that really write; no host synchronisation."""
+    the rows that really write; no host synchronisation.  On a DTensor
+    cache the index is in this rank's local coordinates: its own rows, and
+    the positions of its part of the sequence (a rank whose part does not
+    hold a row's position writes nothing there)."""
+    start, capacity = 0, like.shape[1]
+    if isinstance(like, DTensor):
+        start, capacity = local_range(like, 1)
+        lengths = local_part(lengths, like, (0,))
     rows = torch.arange(lengths.shape[0], device=lengths.device)
-    pos = lengths.to(torch.int64)
+    pos = lengths.to(torch.int64) - start
     ok = ((pos >= 0) & (pos < capacity))[:, None, None]
     return rows, pos.clamp(0, capacity - 1), ok
 
 
 def _write_kv(k_l, v_l, k_new, v_new, lengths, index=None):
     """Per-row write of one token's kv at each row's length, in place.
-    Rows out of range keep their old value (see `_write_index`)."""
-    rows, pos, ok = (_write_index(lengths, k_l.shape[1]) if index is None
-                     else index)
-    k_l[rows, pos] = torch.where(ok, k_new[:, 0].to(k_l.dtype), k_l[rows, pos])
-    v_l[rows, pos] = torch.where(ok, v_new[:, 0].to(v_l.dtype), v_l[rows, pos])
+    Rows out of range keep their old value (see `_write_index`).  A DTensor
+    layer is written on this rank's part, as plain tensors."""
+    rows, pos, ok = _write_index(lengths, k_l) if index is None else index
+    for dst, new in ((k_l, k_new), (v_l, v_new)):
+        d = _local(dst)
+        new = local_part(new, dst, (0, 2))[:, 0].to(d.dtype)
+        d[rows, pos] = torch.where(ok, new, d[rows, pos])
     return (shard(k_l, "batch", "kv_seq", "act_heads", None),
             shard(v_l, "batch", "kv_seq", "act_heads", None))
 
@@ -83,12 +100,12 @@ def _write_kv(k_l, v_l, k_new, v_new, lengths, index=None):
 def _write_kv_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, lengths, index=None):
     """int8-cache variant of `_write_kv`: the new token's kv quantized per
     (row, head), payload and scale written in place."""
-    rows, pos, ok = (_write_index(lengths, k_l.shape[1]) if index is None
-                     else index)
+    rows, pos, ok = _write_index(lengths, k_l) if index is None else index
     for dst, scl, new in ((k_l, ks_l, k_new), (v_l, vs_l, v_new)):
-        q, sc = KC.quantize_kv(new[:, 0])
-        dst[rows, pos] = torch.where(ok, q, dst[rows, pos])
-        scl[rows, pos] = torch.where(ok[..., 0], sc, scl[rows, pos])
+        d, sl = _local(dst), _local(scl)
+        q, sc = KC.quantize_kv(local_part(new, dst, (0, 2))[:, 0])
+        d[rows, pos] = torch.where(ok, q, d[rows, pos])
+        sl[rows, pos] = torch.where(ok[..., 0], sc, sl[rows, pos])
     return (shard(k_l, "batch", "kv_seq", "act_heads", None),
             shard(v_l, "batch", "kv_seq", "act_heads", None),
             shard(ks_l, "batch", "kv_seq", "act_heads"),
@@ -214,7 +231,7 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one,
     attend_len = lengths + 1                         # includes this token
     windows = cfg.layer_windows()
     rope = rope_tables(cfg, positions)               # once for all layers
-    index = _write_index(lengths, cache["k"].shape[2])
+    index = _write_index(lengths, cache["k"][0])
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
         h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
@@ -260,7 +277,7 @@ def _hybrid_decode(params, cfg, dims, x, positions, cache):
     lengths = cache["length"]
     attend_len = lengths + 1                         # includes this token
     rope = rope_tables(cfg, positions)
-    index = _write_index(lengths, cache["k"].shape[2])
+    index = _write_index(lengths, cache["k"][0])
     for g in range(n_groups):
         for i in range(g * ae, (g + 1) * ae):
             x = _ssm_decode_layer(params, cfg, i, x, cache)

@@ -156,7 +156,7 @@ def _embed_target(params, cfg, dims, tokens, dt):
 
 
 def _logits(params, cfg, dims, x, dt, *, mask: bool = True):
-    logits = x @ params["embed"]["embedding"].to(dt).T
+    logits = L.unembed(params["embed"], x, dt)
     if mask and dims.vocab_pad > cfg.vocab_size:
         ok = torch.arange(dims.vocab_pad, device=x.device) < cfg.vocab_size
         logits = torch.where(ok[None, None], logits, -1e30)
@@ -214,9 +214,11 @@ def encdec_decode(params, cfg: ArchConfig, dims: ModelDims, token,
     positions = lengths[:, None]
     pos_row = lengths.long().clamp(0, params["dec_pos"].shape[0] - 1)
     x = L.embed_lookup(params["embed"], token, dt)
-    x = x + params["dec_pos"][pos_row].to(dt)[:, None, :]
+    # the rows' positions gathered as tokens are (`lookup_rows` on DTensors)
+    x = x + L.embed_lookup({"embedding": params["dec_pos"]}, pos_row,
+                           dt)[:, None, :]
     attend_len = lengths + 1                         # includes this token
-    index = _write_index(lengths, cache["k"].shape[2])
+    index = _write_index(lengths, cache["k"][0])
     for i, p in enumerate(unstack(params["dec_layers"], cfg.n_layers)):
         h = layernorm(p["attn_norm"], x)
         q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import lookup_rows
+from repro_torch.distributed.sharding import (fsdp_gather, lookup_rows,
+                                              sharded_product)
 
 Params = Dict[str, Any]
 
@@ -173,17 +174,20 @@ def dense_specs(d_in: int, d_out: int, axes: Tuple[Optional[str], ...],
 def get_kernel(params: Params, compute_dtype) -> torch.Tensor:
     """The projection's kernel in compute dtype.  Weight-only quantization
     (serving): an int8 kernel with a per-output-channel f32 scale is
-    dequantized on use, in compute dtype, as the reference does."""
+    dequantized on use, in compute dtype, as the reference does.  A DTensor
+    kernel is gathered over its FSDP mesh dims first (`fsdp_gather`)."""
     if "kernel_q" in params:
-        q = params["kernel_q"].to(compute_dtype)
-        return q * params["kernel_scale"].to(compute_dtype)[None]
-    return params["kernel"].to(compute_dtype)
+        q = fsdp_gather(params["kernel_q"]).to(compute_dtype)
+        return q * fsdp_gather(params["kernel_scale"]).to(compute_dtype)[None]
+    return fsdp_gather(params["kernel"]).to(compute_dtype)
 
 
 def dense(params: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if compute_dtype is None:
         compute_dtype = x.dtype
-    y = x.to(compute_dtype) @ get_kernel(params, compute_dtype)
+    w = get_kernel(params, compute_dtype)
+    y = (sharded_product(x.to(compute_dtype), w) if isinstance(w, DTensor)
+         else x.to(compute_dtype) @ w)
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
@@ -256,7 +260,9 @@ def embed_lookup(params: Params, tokens: torch.Tensor,
 
 
 def unembed(params: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    emb = params["embedding"].to(compute_dtype)
+    emb = fsdp_gather(params["embedding"]).to(compute_dtype)
+    if isinstance(emb, DTensor):
+        return sharded_product(x.to(compute_dtype), emb.T)
     return x.to(compute_dtype) @ emb.T
 
 

@@ -1,8 +1,9 @@
 # Counterpart of src/repro/models/model_zoo.py: every family, with int8
-# weights and cache, under a sharding plan.  Not ported yet: the dry-run's
-# input specs (`input_specs`, `cache_specs_struct`; ROADMAP.md, Queue A,
-# item 6).  `cross_entropy` of DTensor logits gathers the vocabulary first
-# (`_cross_entropy_sharded`); the reference leaves that to its partitioner.
+# weights and cache, under a sharding plan, and the dry-run's input specs
+# (`input_specs`, `cache_specs_struct`: meta tensors where the reference has
+# ShapeDtypeStructs).  `cross_entropy` of DTensor logits gathers the
+# vocabulary first (`_cross_entropy_sharded`); the reference leaves that to
+# its partitioner.
 """Unified model facade: build an architecture, expose init / loss /
 forward / prefill / decode plus cache construction.
 
@@ -18,7 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.configs.base import ArchConfig, dtype_of
+from repro_torch.configs.base import ArchConfig, ShapeConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode as D
 from repro_torch.models import encdec as ED
@@ -182,6 +183,36 @@ class Model:
         if self.cfg.family == "encdec":
             return ED.encdec_decode(params, self.cfg, self.dims, token, cache)
         return D.lm_decode(params, self.cfg, self.dims, token, cache)
+
+    # ---- dry-run specs ---------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Meta-tensor stand-ins for every model input (no allocation), the
+        reference's ShapeDtypeStructs.  Token ids are int32, as there; the
+        model converts where it indexes."""
+        cfg = self.cfg
+        b = shape.global_batch
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        dt = dtype_of(cfg.compute_dtype)
+        if shape.kind in ("train", "prefill"):
+            s = shape.seq_len
+            out = {"tokens": meta((b, s), torch.int32)}
+            if shape.kind == "train":
+                out["labels"] = meta((b, s), torch.int32)
+            if cfg.family == "encdec":
+                out["frames"] = meta((b, cfg.n_frames, cfg.d_model), dt)
+            if cfg.n_patches:
+                out["patches"] = meta((b, cfg.n_patches, cfg.d_model), dt)
+            return out
+        # decode: one new token + cache of seq_len
+        return {"token": meta((b, 1), torch.int32)}
+
+    def cache_specs_struct(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The tree of ``init_cache(global_batch, seq_len)`` as meta tensors,
+        whatever the model's device."""
+        meta = dataclasses.replace(self, device=torch.device("meta"))
+        return meta.init_cache(shape.global_batch, shape.seq_len)
 
     # ----------------------------------------------------------------------
     def params_on_device(self, params):

@@ -9,8 +9,9 @@
 # whole (`local_part`: an all-gather of the expert outputs over "model"),
 # per batch row as the reference's dispatch is; the expert buffers between
 # them are DTensors under the reference's `shard(...)` constraints, and
-# the expert products run as DTensor ops.  The router's statistics come
-# back as sums over the ranks' rows.
+# the expert products run as DTensor ops.  The router's top-k runs on each
+# rank's rows too, and the aux loss's means and the router's statistics
+# come back as sums over the ranks' rows.
 """Mixture-of-Experts layer: top-k routing, capacity-bounded sorted dispatch.
 
 Dispatch is *per batch row* (buffers [B, E, C, d]), as in the reference:
@@ -34,6 +35,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed.sharding import (from_local_part, local_part,
@@ -70,8 +72,32 @@ def route(router_params, x: torch.Tensor, m: MoEConfig,
           rng: Optional[torch.Generator] = None):
     """x: [B,S,d] -> (expert ids [B,S,k] int64, gates [B,S,k] f32, aux).
     ``rng``: where the router's jitter is drawn from, when
-    ``m.router_jitter > 0``."""
+    ``m.router_jitter > 0``.  DTensor logits route on this rank's rows as
+    plain tensors (each row routes alone); the aux loss's means are then
+    sums over the ranks that split the rows."""
     logits = L.dense(router_params, x, torch.float32)        # [B,S,E]
+    top_e, top_g, gates_full, first, noisy = _top_k(local_part(logits, x),
+                                                    m, rng)
+    if isinstance(logits, DTensor):
+        n = logits.shape[0] * logits.shape[1]
+        me, ce = (from_local_part(torch.sum(t.reshape(-1, m.n_experts), 0),
+                                  x, partial=True) / n
+                  for t in (gates_full, first))
+        top_e, top_g = from_local_part(top_e, x), from_local_part(top_g, x)
+    else:
+        me = torch.mean(gates_full.reshape(-1, m.n_experts), dim=0)
+        ce = torch.mean(first.reshape(-1, m.n_experts), dim=0)
+        logits = noisy
+    # load-balancing aux loss (Switch-style) on the first choice
+    aux_loss = m.n_experts * torch.sum(me * ce) * m.aux_loss_coef
+    return top_e, top_g, {"router_aux_loss": aux_loss,
+                          "router_logits_max": torch.amax(torch.abs(logits))}
+
+
+def _top_k(logits: torch.Tensor, m: MoEConfig,
+           rng: Optional[torch.Generator]):
+    """(expert ids, renormalised gates, the softmax over every expert, the
+    first choice one-hot, the logits with the jitter) of plain logits."""
     if rng is not None and m.router_jitter > 0:
         noise = torch.randn(logits.shape, generator=rng, dtype=torch.float32,
                             device=rng.device).to(logits.device)
@@ -79,13 +105,8 @@ def route(router_params, x: torch.Tensor, m: MoEConfig,
     gates_full = torch.softmax(logits, dim=-1)
     top_g, top_e = torch.topk(gates_full, m.top_k, dim=-1, sorted=True)
     top_g = top_g / torch.clamp(torch.sum(top_g, -1, keepdim=True), min=1e-9)
-    # load-balancing aux loss (Switch-style) on the first choice
-    me = torch.mean(gates_full.reshape(-1, m.n_experts), dim=0)
-    onehot = torch.nn.functional.one_hot(top_e[..., 0], m.n_experts).float()
-    ce = torch.mean(onehot.reshape(-1, m.n_experts), dim=0)
-    aux_loss = m.n_experts * torch.sum(me * ce) * m.aux_loss_coef
-    return top_e, top_g, {"router_aux_loss": aux_loss,
-                          "router_logits_max": torch.amax(torch.abs(logits))}
+    first = torch.nn.functional.one_hot(top_e[..., 0], m.n_experts).float()
+    return top_e, top_g, gates_full, first, logits
 
 
 def dispatch_indices(top_e: torch.Tensor, k: int, n_experts: int, cap: int):

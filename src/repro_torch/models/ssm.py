@@ -1,6 +1,9 @@
 # Counterpart of src/repro/models/ssm.py; nothing of it is left unported.
 # The `shard(...)` constraints are identities unless a plan is active and the
-# tensor is a DTensor (distributed/sharding.py).  Each
+# tensor is a DTensor (distributed/sharding.py).  On DTensors the SSD and the
+# decode step's state update run on this rank's rows and heads as plain
+# tensors (each (row, head) is independent), as the attention core does:
+# DTensor would fold a sharded batch of heads into its batched products.  Each
 # `lax.scan` is a Python loop; the three-operand einsums of `ssd_chunked`
 # are written as the pairwise products that the reference's jaxpr holds.
 """Mamba2 (state-space duality) block: chunked SSD scan, reference recurrence,
@@ -17,9 +20,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import (from_local_part, local_part,
+                                              shard)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd import chunking, pad_steps
 from repro_torch.models import layers as L
@@ -119,7 +124,10 @@ def a_of(params) -> torch.Tensor:
 def ssd_chunked(xh, dt, A, Bp, Cp, chunk: int,
                 h0: Optional[torch.Tensor] = None):
     """Chunked SSD.  xh: [B,S,nh,hp]; dt: [B,S,nh] (f32); A: [nh] (<0);
-    Bp/Cp: [B,S,N].  Returns (y [B,S,nh,hp] f32, h_final [B,nh,hp,N] f32)."""
+    Bp/Cp: [B,S,N].  Returns (y [B,S,nh,hp] f32, h_final [B,nh,hp,N] f32).
+    The intra-chunk products and each chunk's own state run for all chunks
+    at once (the reference's scan body computes them chunk by chunk, the
+    same products); only the carried state loops over the chunks."""
     b, s, nh, hp = xh.shape
     n = Bp.shape[-1]
     q, nchunk, pad = chunking(s, chunk)
@@ -131,30 +139,33 @@ def ssd_chunked(xh, dt, A, Bp, Cp, chunk: int,
     cum = torch.cumsum(la, dim=2)                      # [b,c,q,nh]
     tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
 
+    # what does not depend on the carried state, for every chunk at once
+    xdt = xf * dtc[..., None]                                  # [b,c,q,nh,hp]
+    # intra-chunk: masked decay kernel L[t,s] = exp(cum_t - cum_s), t>=s
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [b,c,q,q,nh]
+    # mask BEFORE exp: the upper triangle is never exponentiated
+    Lk = torch.exp(torch.where(tri[None, None, :, :, None], rel, -torch.inf))
+    cb = torch.matmul(Cc, Bc.transpose(-1, -2))                # [b,c,q,q]
+    # y_intra[b,c,t,h,p] = sum_s (Lk * cb)[b,c,t,s,h] xdt[b,c,s,h,p]
+    w = (Lk * cb[..., None]).permute(0, 1, 4, 2, 3)            # [b,c,nh,t,s]
+    y_intra = torch.matmul(w, xdt.permute(0, 1, 3, 2, 4)
+                           ).permute(0, 1, 3, 2, 4)
+    # each chunk's state: S_c = sum_s exp(cum_last - cum_s) B_s xdt_s
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)             # [b,c,q,nh]
+    xw = (xdt * decay_out[..., None]).permute(0, 1, 3, 4, 2)   # [b,c,nh,hp,q]
+    s_new = torch.matmul(xw, Bc[:, :, None])                   # [b,c,nh,hp,N]
+
     h = torch.zeros((b, nh, hp, n), dtype=torch.float32, device=xh.device) \
         if h0 is None else h0
     ys = []
     for c in range(nchunk):
-        xq, dq, bq, cq, cumq = xf[:, c], dtc[:, c], Bc[:, c], Cc[:, c], cum[:, c]
-        xdtq = xq * dq[..., None]                      # [b,q,nh,hp]
-        # intra-chunk: masked decay kernel L[t,s] = exp(cum_t - cum_s), t>=s
-        rel = cumq[:, :, None, :] - cumq[:, None, :, :]            # [b,q,q,nh]
-        # mask BEFORE exp: the upper triangle is never exponentiated
-        Lk = torch.exp(torch.where(tri[None, :, :, None], rel, -torch.inf))
-        cb = torch.matmul(cq, bq.transpose(-1, -2))                # [b,q,q]
-        # y_intra[b,t,h,p] = sum_s (Lk * cb)[b,t,s,h] xdt[b,s,h,p]
-        w = (Lk * cb[..., None]).permute(0, 3, 1, 2)               # [b,nh,t,s]
-        y_intra = torch.matmul(w, xdtq.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+        cq, cumq = Cc[:, c], cum[:, c]
         # inter-chunk contribution from incoming state:
         # C_t . h_in, times exp(cum_t)
         ch = torch.matmul(cq[:, None], h.transpose(-1, -2))        # [b,nh,q,hp]
         y_inter = ch.permute(0, 2, 1, 3) * torch.exp(cumq)[..., None]
-        # state update: S_c = sum_s exp(cum_last - cum_s) B_s xdt_s
-        decay_out = torch.exp(cumq[:, -1:, :] - cumq)              # [b,q,nh]
-        xw = (xdtq * decay_out[..., None]).permute(0, 2, 3, 1)     # [b,nh,hp,q]
-        s_new = torch.matmul(xw, bq[:, None])                      # [b,nh,hp,N]
-        h = torch.exp(cumq[:, -1])[:, :, None, None] * h + s_new
-        ys.append(y_intra + y_inter)
+        h = torch.exp(cumq[:, -1])[:, :, None, None] * h + s_new[:, c]
+        ys.append(y_intra[:, c] + y_inter)
     y = torch.stack(ys, dim=1).reshape(b, nchunk * q, nh, hp)
     return y[:, :s], h
 
@@ -175,7 +186,16 @@ def ssd_reference(xh, dt, A, Bp, Cp):
 
 
 def ssd(impl: str, xh, dt, A, Bp, Cp, chunk: int):
-    """The full-sequence SSD by ``impl`` -> (y f32, h_final f32)."""
+    """The full-sequence SSD by ``impl`` -> (y f32, h_final f32).  On
+    DTensors it runs on this rank's rows and heads (see the head comment)."""
+    if isinstance(xh, DTensor):
+        y, h = ssd(impl, local_part(xh, xh, (0, 2)),
+                   local_part(dt, xh, (0, 2)),
+                   local_part(A[None, None], xh, (2,))[0, 0],
+                   local_part(Bp, xh, (0,)), local_part(Cp, xh, (0,)), chunk)
+        # h [B,nh,hp,N]: its head dim at 2, as xh's, to take xh's shards
+        return (from_local_part(y, xh, (0, 2)),
+                from_local_part(h[:, None], xh, (0, 2))[:, 0])
     if impl == "cuda":
         return kops.ssd(xh, dt, A, Bp, Cp, chunk=chunk)
     if impl == "chunked":
@@ -213,11 +233,22 @@ def mamba2_decode(params, cfg: ArchConfig, x: torch.Tensor,
     z, xh, Bp, Cp, dt, new_conv = _project(params, cfg, x, dtype, conv_state)
     a = torch.exp(dt[:, 0] * a_of(params)[None])           # [B,nh]
     dx = xh[:, 0].float() * dt[:, 0][..., None]             # [B,nh,hp]
-    h = ssm_state.mul_(a[..., None, None])
-    h.addcmul_(dx[..., None], Bp[:, 0].float()[:, None, None, :])
-    y = torch.matmul(h, Cp[:, 0].float()[:, None, :, None])[..., 0][:, None]
-    out = _finish(params, cfg, y, xh, dt, z, dtype)
-    return out, h, new_conv
+    y = _decode_state(ssm_state, a, dx, Bp[:, 0].float(), Cp[:, 0].float())
+    out = _finish(params, cfg, y[:, None], xh, dt, z, dtype)
+    return out, ssm_state, new_conv
+
+
+def _decode_state(h, a, dx, Bv, Cv):
+    """h [B,nh,hp,N] <- a h + dx B (in place); returns y = h C [B,nh,hp].
+    A DTensor state is updated on this rank's rows and heads."""
+    if isinstance(h, DTensor):
+        y = _decode_state(h.to_local(), local_part(a, h, (0, 1)),
+                          local_part(dx, h, (0, 1)), local_part(Bv, h, (0,)),
+                          local_part(Cv, h, (0,)))
+        return from_local_part(y, h, (0, 1))
+    h.mul_(a[..., None, None])
+    h.addcmul_(dx[..., None], Bv[:, None, None, :])
+    return torch.matmul(h, Cv[:, None, :, None])[..., 0]
 
 
 def conv_dim(cfg: ArchConfig) -> int:

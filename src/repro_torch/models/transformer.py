@@ -29,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, dtype_of
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import active_rules, shard, use_rules
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -166,14 +166,22 @@ def unstack(stacked, n: int) -> List[Dict[str, Any]]:
 
 def _maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
     """``fn`` recomputed in the backward (``remat="full"``), when grad is
-    enabled; as it is otherwise."""
+    enabled; as it is otherwise.  The recomputation runs under the sharding
+    plan that is active now: the backward of CUDA tensors runs on another
+    thread, which does not see this thread's plan, and without it the
+    recomputed layer would place its tensors otherwise than the forward."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat != "full":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported (the port has 'full' and "
             "'none')")
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    plan = active_rules()
+
+    def under_plan(*args, **kw):
+        with use_rules(plan):
+            return fn(*args, **kw)
+    return functools.partial(checkpoint, under_plan, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

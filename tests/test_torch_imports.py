@@ -50,7 +50,8 @@ def test_sources_were_found():
             "profile_store.py", "validate.py", "faults.py", "store.py",
             "journal.py", "scheduler.py", "stages.py", "runtime.py",
             "pipeline.py", "obs.py", "moe.py", "encdec.py", "packing.py",
-            "loader.py", "sharding.py", "mesh.py", "grad_compress.py"} <= names
+            "loader.py", "sharding.py", "mesh.py", "grad_compress.py",
+            "dryrun.py", "roofline.py", "hlo_analysis.py"} <= names
     for rel in ("distributed/__init__.py", "distributed/sharding.py",
                 "distributed/pipeline.py", "distributed/faults.py",
                 "launch/mesh.py", "optim/grad_compress.py"):
@@ -132,6 +133,20 @@ def test_train_entry_points_raise_without_a_card():
         Trainer(cfg, instrument=False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
+
+
+def test_dryrun_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_cell("qwen3-1.7b", "decode_32k", "single")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        dryrun.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k",
+                     "--out", str(tmp_path / "cells")])
+    assert not dist.is_initialized()        # no fake group was made
+    assert not (tmp_path / "cells").exists()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

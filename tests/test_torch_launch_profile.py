@@ -63,7 +63,7 @@ def test_core_exports_the_jax_core_names_but_the_unported():
     def public(mod):
         return {n for n in dir(mod) if not n.startswith("_")}
 
-    unported = {"hlo_analysis", "jaxpr_cost"}      # ROADMAP Queue A, dry-run
+    unported = {"jaxpr_cost"}       # `graph_cost` is its counterpart
     assert public(jx_core) - public(pt_core) == unported
     # jaxpr_cost's counterpart on the ATen graph
     assert public(pt_core) - public(jx_core) == {"graph_cost"}
