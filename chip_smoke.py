@@ -6,10 +6,12 @@
 Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
 intra-chunk) from the sources in this checkout, holds each kernel against its
 plain PyTorch version on the card (a sweep of small shapes and the serving
-paths' full-width shapes, timed), then serves 16 requests on each of seven
+paths' full-width shapes, timed), then serves 16 requests on each of eight
 paths in turn (bf16, random weights from seed 0) through the port's
 ``ServeEngine``: qwen3-1.7b, the same with int8 weights (quantized from its
-weights) and an int8 KV cache (``qwen3-1.7b/int8``), mamba2-780m,
+weights) and an int8 KV cache (``qwen3-1.7b/int8``), the same with int4
+weights (random nibbles from seed 0, two a byte; ``qwen3-1.7b/int4``),
+mamba2-780m,
 zamba2-1.2b, olmoe-1b-7b, whisper-tiny (its encoder's K1 not causal over
 1500 frames) and internvl2-76b at its published widths with 8 of its 80
 layers.  For each path it checks by the launch counters that every
@@ -17,12 +19,17 @@ prefill went through the kernels of its layers (K1 per attention layer, K3
 per Mamba2 layer) and every decode step through K2 per attention layer,
 holds the kernel path against the plain path on the card (in bf16 and in f32
 activations; for MoE with the share of routing decisions that differ), and
-builds the interval profile of the run.  Then it trains full-width
+builds the interval profile of the run.  Then the model-accuracy study of
+the paper's §V-B (``accuracy``): for qwen3-1.7b, mamba2-780m and olmoe-1b-7b
+(4 of 16 layers) the ATen graph of the loss forward against the kernels one
+call runs under torch.profiler, their largest deltas, and the block labels
+locating K1, K3 and the products in their blocks.  Then it trains full-width
 qwen3-1.7b for 6 steps through the port's ``Trainer`` (bf16, AdamW with the
 f32 master, the work meter in the step, the interval profile at the end) on
 the chunked attention, which is how the JAX package trains: K1, K2 and K3
 must launch 0 times there, and on a tensor that requires grad each kernel
-wrapper must refuse to run; and olmoe-1b-7b at full width with 4 of its 16
+wrapper must refuse to run; ``remat="selective"`` against ``"full"`` on one
+state and batch (equal loss; peak memory and step time); and olmoe-1b-7b at full width with 4 of its 16
 layers (the MoE train check: the router's loss, the expert token counts and
 the profile's expert columns).  Then the staged nugget pipeline, through the
 port's ``Pipeline`` (profile, select, mark, baseline, replay, validate):
@@ -63,6 +70,7 @@ while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
 times K1, K2 and K3 with every tile choice their launch plans choose from.
+``--phases device,build,accuracy`` runs the §V-B study alone,
 ``--phases device,train`` runs the training phase (the MoE train check
 included) alone,
 ``--phases device,pipeline`` the pipeline phase,
@@ -72,6 +80,7 @@ included) alone,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -894,6 +903,74 @@ def serve_params(cfg, given):
     return quant
 
 
+NIBBLE_STD = math.sqrt((16 ** 2 - 1) / 12)     # a uniform value in [-8, 7]
+
+
+def _init_std(spec) -> float:
+    """The std of a float ParamSpec's random init (`ParamSpec.instantiate`)."""
+    if spec.init == "scaled":
+        return spec.scale / math.sqrt(max(spec.shape[0] if spec.shape else 1,
+                                          1))
+    return spec.scale * 0.02
+
+
+def int4_params(cfg):
+    """The int4 path's weights, with what the allocator gave for them.  Every
+    payload holds random nibbles from seed 0 (the card's generator): test
+    data, not a quantization (the port has no int4 quantizer, nor has the
+    reference).  Every scale is its kernel's float init std over a nibble's
+    (`NIBBLE_STD`), so that the layers see activations of the bf16 path's
+    size; the other leaves are drawn as the bf16 path draws them.  The bytes
+    that the new blocks ask for must equal 0.5 B a payload value, 4 B a
+    scale and 2 B every other value (`_bytes_check`)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(cfg)
+    specs = model.specs()
+    floats = build_model(dataclasses.replace(cfg, weight_quant="none")).specs()
+    nibbles = torch.Generator(device="cuda").manual_seed(0)
+
+    def fill(tree, fspecs):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(v, fspecs[k])
+            elif k == "kernel_q":
+                v.random_(generator=nibbles)          # both nibbles at random
+                tree["kernel_scale"].fill_(_init_std(fspecs["kernel"])
+                                           / NIBBLE_STD)
+
+    def build():
+        params = model.init(torch.Generator(
+            device=SERVE_INIT_DEVICE.get(cfg.name, "cpu")).manual_seed(0))
+        fill(params, floats)
+        return params
+    params, alloc = _allocated_by(build)
+    leaves = L.tree_leaves(specs)
+    payload = sum(math.prod(s.shape) for s in leaves if s.dtype == "int4")
+    scales = sum(math.prod(s.shape) for s in leaves if s.dtype == "float32")
+    other = sum(math.prod(s.shape) for s in leaves if s.dtype is None)
+    predicted = int(0.5 * payload) + 4 * scales + 2 * other
+    check = _bytes_check("int4 weights", predicted, alloc)
+    return params, {"payload_values": payload, "scale_values": scales,
+                    "other_values": other,
+                    "predicted_bytes": predicted, **check,
+                    "int4_payload_bytes": int(0.5 * payload)}
+
+
+def _unpacked(tree, dt):
+    """A parameter tree with every quantized kernel dequantized to ``dt``
+    (`layers.get_kernel`): the same weights for the plain path."""
+    from repro_torch.models import layers as L
+    if not isinstance(tree, dict):
+        return tree
+    if "kernel_q" in tree:
+        out = {k: v for k, v in tree.items()
+               if k not in ("kernel_q", "kernel_scale")}
+        out["kernel"] = L.get_kernel(tree, dt)
+        return out
+    return {k: _unpacked(v, dt) for k, v in tree.items()}
+
+
 def path_inputs(cfg, prompt):
     """The checks' batch: the prompt of request 0 and its reverse, with
     random frames (enc-dec) or patches (VLM) from a seed, f32."""
@@ -909,6 +986,10 @@ def path_inputs(cfg, prompt):
     return batch_in
 
 
+# tokens/s of the serving paths run so far (the int4 path prints them)
+TOKENS_PER_S = {}
+
+
 def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
                 given=None):
     """Serve 16 requests on the path; returns (engine, launches, params,
@@ -920,7 +1001,11 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
 
     t0 = time.perf_counter()
     model = build_model(cfg)                               # on the card
-    params = serve_params(cfg, given)
+    weight_bytes = None
+    if cfg.weight_quant == "int4":
+        params, weight_bytes = int4_params(cfg)
+    else:
+        params = serve_params(cfg, given)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = model.param_count(params)
@@ -964,13 +1049,19 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
          weight_quant=cfg.weight_quant, cache_quant=cfg.cache_quant,
          params=n_params, params_analytic=cfg.param_count(),
          init_seconds=init_s,
-         init_generator=(f"quantize_params of {path.split('/')[0]}'s"
-                         if cfg.weight_quant != "none"
-                         else SERVE_INIT_DEVICE.get(cfg.name, "cpu")),
+         init_generator=(
+             f"quantize_params of {path.split('/')[0]}'s"
+             if cfg.weight_quant == "int8" else
+             "payloads: random nibbles, the card's generator; the rest: "
+             f"{SERVE_INIT_DEVICE.get(cfg.name, 'cpu')}"
+             if cfg.weight_quant == "int4"
+             else SERVE_INIT_DEVICE.get(cfg.name, "cpu")),
          batch=batch, max_seq=max_seq,
          prefill_len=prefill_len, stats=stats, prefills=prefills,
          decode_iterations=decodes, launches=launches,
-         peak_memory_bytes=peak)
+         peak_memory_bytes=peak, weight_bytes=weight_bytes,
+         tokens_per_s_of=dict(TOKENS_PER_S) if weight_bytes else None)
+    TOKENS_PER_S[path] = stats["tokens_per_s"]
 
     # ---- the kernel path against the plain path, on the card ---------------
     # The same prefill and one decode step through the kernels, through their
@@ -1151,7 +1242,9 @@ def first_attention_vs_plain(cfg, model, params, batch_in) -> dict:
     rounding (see `phase_serve`) cannot hide a fault of the kernel.  For the
     enc-dec family it is the encoder's first block (layer norm, projections,
     K1 not causal over the frames, output projection); for the VLM the
-    embedding holds the projected patches."""
+    embedding holds the projected patches.  With int4 weights the plain
+    side runs on the same weights unpacked to bf16 (`_unpacked`), so the
+    unpacking on use is held too."""
     from repro_torch.configs.base import dtype_of
     from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as T
@@ -1173,8 +1266,12 @@ def first_attention_vs_plain(cfg, model, params, batch_in) -> dict:
                            batch_in.get("patches"))
         pos = T.positions_for(batch_in["tokens"])
         for impl in ("cuda", "reference"):
-            c = dataclasses.replace(cfg, attention_impl=impl)
-            out[impl] = T._attn_block(p, c, model.dims, x, pos, -1,
+            c, pi = dataclasses.replace(cfg, attention_impl=impl), p
+            if impl == "reference" and cfg.weight_quant == "int4":
+                # the plain path on the same weights unpacked to bf16
+                pi = _unpacked(p, dtype_of(cfg.compute_dtype))
+                c = dataclasses.replace(c, weight_quant="none")
+            out[impl] = T._attn_block(pi, c, model.dims, x, pos, -1,
                                       plus_one=False, aux={})[0].float()
     g, w = out["cuda"], out["reference"]
     assert bool(torch.isfinite(g).all())
@@ -1222,12 +1319,21 @@ def first_layer_vs_plain(cfg, model, params, batch_in) -> dict:
     return out
 
 
+def is_device_work(e) -> bool:
+    """A profiler row of device work: a kernel, copy or fill, not a
+    device-side span of a `record_function` range (the block labels,
+    `models/layers.scope`, show on the device's timeline too, over the
+    kernels they enclose)."""
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA and \
+        not getattr(e, "is_user_annotation", False)
+
+
 def phase_trace(path, eng, params, prefill_len: int, steps: int = 5) -> None:
     """Optional (`--phases ...,trace`): where a decode step's and a prefill's
     time goes.  Host time per call (host clock around calls that end in a
     synchronise), device-busy time (sum of kernel times from torch.profiler)
     and the kernels that take most of it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     model = eng.model
     tok = torch.zeros((eng.batch, 1), dtype=torch.int32, device="cuda")
@@ -1257,7 +1363,7 @@ def phase_trace(path, eng, params, prefill_len: int, steps: int = 5) -> None:
             torch.cuda.synchronize()
         rows = [(e.key, e.self_device_time_total / steps / 1e3, e.count // steps)
                 for e in prof.key_averages()     # kernels, not the ops' sums
-                if e.device_type == DeviceType.CUDA]
+                if is_device_work(e)]
         busy_ms = sum(r[1] for r in rows)
         rows.sort(key=lambda r: -r[1])
         out[name] = {
@@ -1306,6 +1412,174 @@ def phase_profile(path, eng) -> None:
             flops["cuda"] / flops["chunked"]
     emit("profile", arch=path, n_intervals=prof.n_intervals,
          blocks=list(names), **extra)
+
+
+# The model-accuracy study of the paper's §V-B: the loss forward of three
+# architectures (bf16, default impls, batch 2 x 512), its ATen graph on meta
+# tensors against the kernels one call runs on the card.  olmoe-1b-7b runs 4
+# of its 16 layers (reduced depth, as its train check).
+ACCURACY = (("qwen3-1.7b", None), ("mamba2-780m", None), ("olmoe-1b-7b", 4))
+ACCURACY_BATCH, ACCURACY_SEQ = 2, 512
+# the block labels of each family, and where K1 and K3 must lie
+ACCURACY_LABELS = {"dense": ("nugget_block_attn", "nugget_block_mlp"),
+                   "moe": ("nugget_block_attn", "nugget_block_moe"),
+                   "ssm": ("nugget_block_mamba",)}
+
+
+def is_product_kernel(name: str) -> bool:
+    """A library matrix product by its normalised kernel name: cuBLAS's
+    Hopper kernels (``nvjet_...``), its ``sm90_xmma_gemm_...`` and CUTLASS
+    kernels, or any name with ``gemm``."""
+    low = name.lower()
+    return any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma"))
+
+
+@contextlib.contextmanager
+def labels(on: bool):
+    """The block labels as they are (``on``) or replaced by a null context,
+    as if the blocks had none."""
+    from repro_torch.models import layers as L
+    real = L.scope
+    if not on:
+        L.scope = lambda name: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        L.scope = real
+
+
+def _meta_tree(model):
+    """Meta tensors for a model's parameters (int4 payloads packed)."""
+    from repro_torch.configs.base import dtype_of
+    from repro_torch.models import layers as L
+    dt = dtype_of(model.cfg.param_dtype)
+    return L.map_specs(lambda s: torch.empty(
+        L.stored_shape(s), dtype=L.spec_dtype(s) or dt, device="meta"),
+        model.specs())
+
+
+def phase_accuracy() -> dict:
+    """The §V-B study on the card, per architecture of `ACCURACY`: the
+    portable IR's histogram (`hlo_analysis.ir_histogram`, the ATen graph on
+    meta tensors) against the kernels of one warm call under torch.profiler
+    (`kernel_histogram_of`), their ratio and largest deltas
+    (`histogram_delta`).  Asserts that K1's count in the kernel histogram
+    equals its launch counter and the attention layers, K3's the Mamba2
+    layers; that `find_scope_labels` places K1 under "nugget_block_attn",
+    K3 under "nugget_block_mamba" and a product kernel under the MLP's or
+    the MoE's label; and that the labels add no launch: the same forward
+    outside a profile, with the labels on and off, launches what the
+    profiled one does, and a profile with the labels off holds as many
+    kernels.  Each profile holds every device event of its call
+    (`profile_call` takes again one that lost some, and says how many it
+    took).  The IR takes the kernels' plain versions (a wrapper on a meta
+    tensor), the card runs K1 and K3: that delta is kept, as the study is
+    there to show it."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import hlo_analysis as H
+    from repro_torch.models.model_zoo import build_model
+    out = {}
+    shape = ShapeConfig("accuracy", "train", ACCURACY_SEQ, ACCURACY_BATCH)
+    for arch, depth in ACCURACY:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if depth is None else dataclasses.replace(full,
+                                                             n_layers=depth)
+        meta = build_model(cfg, device="meta")
+        ir = H.ir_histogram(lambda p, b: meta.loss(p, b)[0], _meta_tree(meta),
+                            meta.input_specs(shape))
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (ACCURACY_BATCH,
+                                                 ACCURACY_SEQ),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(1),
+                             device="cuda", dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks}
+
+        @torch.no_grad()
+        def loss():
+            return model.loss(params, batch)[0]
+
+        value = loss().item()                  # warm: loads every kernel
+        assert math.isfinite(value), value
+        outside = {}
+        for on in (True, False):              # outside a profile
+            with labels(on):
+                reset_counters()
+                loss()
+                torch.cuda.synchronize()
+                outside[on] = read_counters()
+        with labels(False):
+            prof_off = H.profile_call(loss)
+        # ---- the main path: counters to 0 just before, read just after -----
+        reset_counters()
+        prof = H.profile_call(loss)
+        launches = read_counters()
+        kern = H.kernel_histogram_of(prof)
+        kern_off = H.kernel_histogram_of(prof_off)
+
+        def count(hist, kernel):
+            return sum(hist.get(n, 0) for n in H.PORT_KERNEL_NAMES[kernel])
+        n_attn = n_attention_layers(cfg)
+        n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+        k1, k3 = count(kern, "flash_attention"), count(kern, "ssd_intra")
+        assert k1 == launches["flash_attention"] == n_attn, (arch, k1,
+                                                              launches)
+        assert k3 == launches["ssd_intra"] == n_ssm, (arch, k3, launches)
+        assert launches["flash_decode"] == 0 == count(kern, "flash_decode")
+        assert outside[True] == outside[False] == launches, (arch, outside)
+        assert sum(kern_off.values()) == sum(kern.values()), (
+            arch, H.histogram_delta(kern, kern_off)[:6])
+
+        found = {label: H.find_scope_labels(prof, label)
+                 for label in ACCURACY_LABELS[cfg.family]}
+        in_attn = found.get("nugget_block_attn", [])
+        assert sum(n in H.PORT_KERNEL_NAMES["flash_attention"]
+                   for n in in_attn) == n_attn, (arch, in_attn[:20])
+        if n_ssm:
+            assert sum(n in H.PORT_KERNEL_NAMES["ssd_intra"] for n in
+                       found["nugget_block_mamba"]) == n_ssm, arch
+        for label in ("nugget_block_mlp", "nugget_block_moe"):
+            if label in found:
+                assert any(is_product_kernel(n) for n in found[label]), (
+                    arch, label, sorted(set(found[label]))[:20])
+
+        n_ir, n_k = sum(ir.values()), sum(kern.values())
+        deltas = H.histogram_delta(ir, kern)[:6]
+        print(f"accuracy {arch}: IR ops {n_ir}, kernels {n_k}, "
+              f"ratio {n_ir / n_k:.4f}", flush=True)
+        for op, a, b in deltas:
+            print(f"accuracy {arch}:   delta {op[:60]} IR {a} kernels {b}",
+                  flush=True)
+        top = sorted(kern.items(), key=lambda kv: -kv[1])
+        raw = {}
+        for e in H.device_kernels(prof):
+            raw.setdefault(H.kernel_name(e.name), e.name)
+        emit("accuracy", arch=arch, n_layers=cfg.n_layers,
+             reduced=(None if depth is None else
+                      {"n_layers": [full.n_layers, depth]}),
+             batch=ACCURACY_BATCH, seq_len=ACCURACY_SEQ,
+             compute_dtype=cfg.compute_dtype, loss=value,
+             ir_ops=n_ir, kernels=n_k, ratio=n_ir / n_k,
+             top_deltas=[list(r) for r in deltas],
+             launches=launches, k1_in_histogram=k1, k3_in_histogram=k3,
+             kernels_labels_off=sum(kern_off.values()),
+             profile_attempts={"labels_off": prof_off.attempts,
+                               "labels_on": prof.attempts},
+             labels={label: {"ops": len(v), "distinct": len(set(v)),
+                             "top": sorted(set(v), key=v.count,
+                                           reverse=True)[:4]}
+                     for label, v in found.items()},
+             top_kernels=top[:12],
+             raw_names={k: raw[k] for k, _ in top[:12]
+                        if len(raw[k]) <= 600},
+             seconds=time.perf_counter() - t0)
+        out[f"{arch}/accuracy"] = launches
+        del model, params, prof, prof_off
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 6, 512, 4, 3e-4
@@ -1386,7 +1660,11 @@ def phase_train(cfg) -> dict:
         losses.append(float(tr.model.loss(state.params, batch0)[0]))
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], losses
-    del state, tr, step
+    del step
+
+    # remat="selective" against "full" on the same state and batch
+    selective = selective_vs_full(tr, state, batch0)
+    del state, tr
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1401,16 +1679,79 @@ def phase_train(cfg) -> dict:
                step_uow=table.step_uow(), meter_uow=int(reading["uow"]),
                n_intervals=prof.n_intervals, launches=launches,
                one_batch_losses=losses, trace=trace, refused=refused,
-               grad_check=grad)
+               grad_check=grad, selective_vs_full=selective)
     emit("train", **out)
     return launches
+
+
+SELECTIVE_STEPS = 3
+
+
+def selective_vs_full(tr, state, batch) -> dict:
+    """``remat="selective"`` (the weight products saved, the rest recomputed)
+    against ``"full"`` on the train configuration.  First the loss and
+    gradients of each on the same state and batch (no update): the losses
+    must be equal, and the peak memory above what was allocated before is
+    kept.  Then the steps (they update the state), in turns full,
+    selective, selective, full: one untimed, then `SELECTIVE_STEPS` timed
+    (host clock, each ending in a synchronise), with each turn's peak
+    memory.  0 launches of K1, K2 and K3."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.state import make_train_step
+    steps = {remat: make_train_step(
+        build_model(dataclasses.replace(tr.cfg, remat=remat)), tr.opt_cfg,
+        constant(TRAIN_LR), instrument=False)
+        for remat in ("full", "selective")}
+    out = {remat: {"step_ms": []} for remat in steps}
+    reset_counters()
+    for remat, step in steps.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = step.grads_of(state.params, batch, None)
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        out[remat].update(
+            loss=loss.item(), grad_norm=norm.item(),
+            loss_and_grad_peak_bytes=torch.cuda.max_memory_allocated() - base)
+        del grads, norm
+    for remat in ("full", "selective", "selective", "full"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps[remat](state, batch)                 # untimed
+        for _ in range(SELECTIVE_STEPS):
+            t0 = time.perf_counter()
+            steps[remat](state, batch)
+            torch.cuda.synchronize()
+            out[remat]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out[remat]["step_peak_bytes"] = max(
+            out[remat].get("step_peak_bytes", 0),
+            torch.cuda.max_memory_allocated() - base)
+        out[remat]["peak_memory_bytes"] = max(
+            out[remat].get("peak_memory_bytes", 0),
+            torch.cuda.max_memory_allocated())
+    assert read_counters() == {k: 0 for k in KERNELS}
+    full, sel = out["full"], out["selective"]
+    for row in (full, sel):
+        row["median_step_ms"] = statistics.median(row["step_ms"])
+    assert sel["loss"] == full["loss"], (sel["loss"], full["loss"])
+    out["grad_norm_rel_diff"] = abs(sel["grad_norm"] - full["grad_norm"]) / \
+        full["grad_norm"]
+    assert out["grad_norm_rel_diff"] <= 1e-3, out
+    out["step_ms_selective_over_full"] = sel["median_step_ms"] / \
+        full["median_step_ms"]
+    out["grad_peak_selective_minus_full_bytes"] = \
+        sel["loss_and_grad_peak_bytes"] - full["loss_and_grad_peak_bytes"]
+    return out
 
 
 def train_step_trace(fn) -> dict:
     """Host ms of one call (host clock around a call that ends in a
     synchronise), and under torch.profiler its device busy ms (the sum of
     kernel times), idle share and kernel launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1422,7 +1763,7 @@ def train_step_trace(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if is_device_work(e)]
     busy_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return {"host_ms": host_ms, "device_busy_ms": busy_ms,
@@ -2528,10 +2869,15 @@ def phase_dryrun(tmp) -> dict:
             f"{TRAIN_ARCH}/one_card": one["launches"]}
 
 
-PATHS = (("qwen3-1.7b", 256), ("qwen3-1.7b/int8", 256), ("mamba2-780m", 512),
+PATHS = (("qwen3-1.7b", 256), ("qwen3-1.7b/int8", 256),
+         ("qwen3-1.7b/int4", 256), ("mamba2-780m", 512),
          ("zamba2-1.2b", 512), ("olmoe-1b-7b", 256), ("whisper-tiny", 64),
          ("internvl2-76b", 512))
-VARIANTS = {"int8": dict(weight_quant="int8", cache_quant="int8")}
+VARIANTS = {"int8": dict(weight_quant="int8", cache_quant="int8"),
+            "int4": dict(weight_quant="int4")}
+# the variants whose weights are quantized from their base path's
+# (`quantize_params`); int4 has no quantizer, in the reference either
+QUANTIZED_FROM_BASE = ("int8",)
 # Depth cuts (layers served): internvl2-76b's 80 layers are 141 GB of bf16
 # weights, more than the card holds; 8 layers at its published widths are
 # 9.0 B parameters.
@@ -2560,8 +2906,8 @@ TRAIN_ARCH = "qwen3-1.7b"      # the train path, after the serving paths
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,serve,profile,train,"
-                            "pipeline,distributed,dryrun")
+                    default="device,build,kernels,serve,profile,accuracy,"
+                            "train,pipeline,distributed,dryrun")
     ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
                     help="serving paths to drive (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
@@ -2591,6 +2937,8 @@ def main() -> int:
         phase_plans(paths, batch, max_seq)
     per_path = {}
     if "serve" not in phases:
+        if "accuracy" in phases:
+            phase_accuracy()
         if "train" in phases:
             phase_train(get_config(TRAIN_ARCH))
             phase_train_moe()
@@ -2614,7 +2962,7 @@ def main() -> int:
             phase_trace(path, eng, params, prefill_len)
         if "profile" in phases:
             phase_profile(path, eng)
-        for variant in VARIANTS:
+        for variant in QUANTIZED_FROM_BASE:
             if f"{path}/{variant}" in chosen:
                 from repro_torch.models.layers import quantize_params
                 carry[f"{path}/{variant}"] = {
@@ -2623,6 +2971,8 @@ def main() -> int:
         del eng, params, logits
         gc.collect()
         torch.cuda.empty_cache()
+    if "accuracy" in phases:
+        per_path.update(phase_accuracy())
     if "train" in phases:
         per_path[f"{TRAIN_ARCH}/train"] = phase_train(get_config(TRAIN_ARCH))
         per_path[f"{MOE_TRAIN['arch']}/train"] = phase_train_moe()
@@ -2637,9 +2987,9 @@ def main() -> int:
     if "dryrun" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             per_path.update(phase_dryrun(tmp))
-    if checks is None or len(paths) < len(PATHS) or "train" not in phases \
-            or "pipeline" not in phases or "distributed" not in phases \
-            or "dryrun" not in phases:
+    if checks is None or len(paths) < len(PATHS) or any(
+            p not in phases for p in ("accuracy", "train", "pipeline",
+                                      "distributed", "dryrun")):
         return 0
 
     kernels = []

@@ -5,9 +5,11 @@ The two packages share one parameter layout, so the conversion is leaf by
 leaf: every key and shape is checked against the port's specs and anything
 unknown or missing raises.  bf16 leaves arrive as ``ml_dtypes`` arrays and go
 through float32, which is exact.  A spec with its own dtype (int8 weights:
-the int8 payload and its f32 scale) keeps it whatever the model's dtype; the
-enc-dec family's ``enc_layers``/``dec_layers`` stacks and ``enc_pos``/
-``dec_pos`` tables carry over like any other leaf.  The module imports no JAX: a caller turns
+the int8 payload and its f32 scale) keeps it whatever the model's dtype; an
+int4 payload (``ml_dtypes.int4`` leaves) is read as int8 and packed two
+values a byte (`layers.pack_int4`); the enc-dec family's
+``enc_layers``/``dec_layers`` stacks and ``enc_pos``/``dec_pos`` tables
+carry over like any other leaf.  The module imports no JAX: a caller turns
 the pytree into numpy first (``jax.tree.map(np.asarray, params)``).
 
 A train state carries over whole: parameters, the optimizer's step, moments
@@ -34,6 +36,9 @@ def _leaf(path: str, arr, spec: L.ParamSpec, device, dtype) -> torch.Tensor:
     if tuple(a.shape) != tuple(spec.shape):
         raise ValueError(f"parameter {path}: shape {tuple(a.shape)}, "
                          f"expected {tuple(spec.shape)}")
+    if spec.dtype == "int4":
+        values = torch.from_numpy(a.astype(np.int8))
+        return L.pack_int4(values, L.int4_axis(spec.axes)).to(device)
     if a.dtype.kind not in "fiu":          # ml_dtypes bfloat16 has kind 'V'
         a = a.astype(np.float32)
     t = torch.from_numpy(np.array(a))         # a copy: the source may be read-only

@@ -1,7 +1,8 @@
 # Counterpart of src/repro/core/__init__.py: the same re-exports, with
 # `graph_cost` (the ATen graph's cost) where the reference has `jaxpr_cost`.
 # `hlo_analysis` analyses the per-rank program that DTensor dispatches (the
-# port has no compiled HLO); what of it is still missing, its head says.
+# port has no compiled HLO), and holds the §V-B study's histograms and the
+# block-label search over a recorded profile.
 """Nugget for PyTorch: the paper's portable targeted-sampling framework.
 
 Pipeline (paper Fig. 1):

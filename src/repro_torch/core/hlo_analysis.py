@@ -1,16 +1,22 @@
 # Counterpart of src/repro/core/hlo_analysis.py, named alike so that a reader
-# finds it.  The reference parses the compiled HLO of one partition; the port
-# has no compiled program, and in its place records the per-rank program
-# that DTensor dispatches on each rank's local tensors (`ProgramRecorder`,
-# run under `FakeTensorMode` on a fake process group by `launch/dryrun.py`).
-# `collective_stats`, `op_histogram`, `total_collective_bytes` and
-# `histogram_delta` take that list of recorded calls where the reference
-# takes HLO text, with the same output schema.  Serves one of the
-# reference's three consumers so far, the dry-run's collective bytes.  Not
-# ported yet: `find_scope_labels` (marker location in a compiled program)
-# and the card's compiled-kernel histogram against the IR histogram of the
-# paper's §V-B (ROADMAP Queue A).
-"""Per-rank program analysis: op histograms and collective traffic.
+# finds it; nothing of it is left unported.  The reference parses compiled
+# HLO; the port has no compiled program, and serves the reference's three
+# consumers so:
+#   - the dry-run's collective bytes: `collective_stats`, `op_histogram`,
+#     `total_collective_bytes` and `histogram_delta` take the per-rank
+#     program that DTensor dispatches on each rank's local tensors
+#     (`ProgramRecorder`, run under `FakeTensorMode` on a fake process group
+#     by `launch/dryrun.py`) where the reference takes HLO text, with the
+#     same output schema;
+#   - the model-accuracy study of the paper's §V-B: the portable IR's
+#     histogram is `ir_histogram` (the ATen graph on meta tensors, the
+#     reference's `jaxpr_histogram`), the compiled side's is
+#     `kernel_histogram` (the kernels one call runs on the card, from
+#     torch.profiler), and `histogram_delta` localises the difference;
+#   - marker location by label: `find_scope_labels` reads a recorded
+#     profile, whose `record_function` ranges (`models/layers.scope`) are the
+#     reference's `named_scope` metadata in the HLO.
+"""Program analysis: op histograms, collective traffic, marker labels.
 
 A recorded call (`RecordedOp`) looks like a node of an ATen FX graph (the
 ``op``, ``target``, ``args`` and ``meta["val"]`` that
@@ -20,7 +26,7 @@ the same rules as a traced block.
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -161,3 +167,239 @@ def histogram_delta(a: Dict[str, int], b: Dict[str, int]
     rows = [(k, a.get(k, 0), b.get(k, 0)) for k in keys
             if a.get(k, 0) != b.get(k, 0)]
     return sorted(rows, key=lambda r: -abs(r[1] - r[2]))
+
+
+# ---------------------------------------------------------------------------
+# the §V-B study: the portable IR against what the card runs
+# ---------------------------------------------------------------------------
+
+# the port's own kernels (K1, K2, K3), by the names their launches carry
+PORT_KERNEL_NAMES = {
+    "flash_attention": ("flash_attention_kernel",
+                        "flash_attention_bf16_kernel"),
+    "flash_decode": ("flash_decode_kernel",),
+    "ssd_intra": ("ssd_intra_kernel", "ssd_tc_kernel"),
+}
+
+
+def ir_histogram(fn: Callable, *args) -> Dict[str, int]:
+    """Op name -> count over the ATen graph of ``fn`` at ``args`` (as a rule
+    meta tensors; `unit_of_work.trace_graph`): the portable IR's histogram,
+    the role of the reference's ``jaxpr_histogram``.  Its total is
+    ``trace_cost(fn, *args).ops``.  A kernel wrapper on meta tensors takes
+    its plain version, so the IR of a ``"cuda"``-impl model holds the plain
+    attention and SSD where the card runs K1 and K3: a delta that the study
+    is there to show."""
+    from repro_torch.core.unit_of_work import trace_graph
+    graph = trace_graph(fn, *args)
+    return dict(collections.Counter(
+        op_name(n) for n in graph.graph.nodes if n.op == "call_function"))
+
+
+def _strip_groups(s: str) -> str:
+    """``s`` without its bracketed groups, ``<...>`` and ``(...)`` nested in
+    one another, at any depth."""
+    out, depth = [], 0
+    for ch in s:
+        if ch in "<(":
+            depth += 1
+        elif ch in ">)" and depth:
+            depth -= 1
+        elif not depth:
+            out.append(ch)
+    return "".join(out)
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's demangled name normalised: no ``void``, no
+    namespaces, no template arguments, no parameter list
+    (``void at::native::vectorized_elementwise_kernel<4, ...>(int, ...)`` ->
+    ``vectorized_elementwise_kernel``).  Names without them (cuBLAS's, the
+    port's own kernels) stay as they are; copies and fills keep theirs
+    (``Memcpy DtoD (Device -> Device)``)."""
+    s = name.strip()
+    if s.startswith(("Memcpy", "Memset")):
+        return s
+    if s.startswith("void "):
+        s = s[len("void "):]
+    s = _strip_groups(s).strip()
+    return s.rsplit("::", 1)[-1].strip()
+
+
+# How `profile_call` profiles a call on the card.  On the H100 with torch
+# 2.11 a profile at times holds a launch whose device event is missing (its
+# CPU-side launch was recorded): most often the profile's first launch,
+# whatever the time between the profile's start and it, and now and then a
+# few dozen within the call.  So the call runs in a `CALL_RANGE` range after
+# `LEAD_IN_LAUNCHES` one-element fills, which take the place of the first
+# launches; `device_kernels` links each of the call's launches to its
+# device event and raises `LostDeviceEvents` where one has none; and a
+# profile that lost events is taken again, up to `PROFILE_ATTEMPTS` times.
+CALL_RANGE = "profile_call"
+LEAD_IN_LAUNCHES = 8
+PROFILE_ATTEMPTS = 4
+# CPU-side CUDA API calls that each put one event on the device
+_LAUNCH_APIS = ("LaunchKernel", "Memcpy", "Memset")
+
+
+class LostDeviceEvents(RuntimeError):
+    """A profile holds a launch, copy or fill of the call with no device
+    event: a histogram of it would be wrong, not approximate."""
+
+
+def _profile_once(fn: Callable, args: tuple, cuda: bool):
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        if cuda:
+            lead = torch.empty(1, device=torch.cuda.current_device())
+            for _ in range(LEAD_IN_LAUNCHES):
+                lead.fill_(0.0)
+            torch.cuda.synchronize()
+            with record_function(CALL_RANGE):
+                fn(*args)
+            torch.cuda.synchronize()
+        else:
+            fn(*args)
+    return prof
+
+
+def profile_call(fn: Callable, *args, cuda: bool = True):
+    """A ``torch.profiler`` profile of one call of ``fn`` (CPU activity, and
+    CUDA activity with ``cuda``; the call is synchronised before the
+    profile closes).  With ``cuda`` the call runs inside a `CALL_RANGE`
+    range after `LEAD_IN_LAUNCHES` fills that `device_kernels` leaves out,
+    and a profile that lost device events is taken again (``fn`` must bear
+    being called again): the profile returned holds every device event of
+    its call, and its ``attempts`` says how many profiles were taken.
+    Raises `LostDeviceEvents` if `PROFILE_ATTEMPTS` profiles all lost
+    some."""
+    if not cuda:
+        return _profile_once(fn, args, cuda)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof = _profile_once(fn, args, cuda)
+        try:
+            device_kernels(prof)
+        except LostDeviceEvents:
+            if attempt == PROFILE_ATTEMPTS:
+                raise
+            continue
+        prof.attempts = attempt
+        return prof
+
+
+def _is_device(e) -> bool:
+    return e.device_type.name != "CPU"
+
+
+def _is_runtime(e) -> bool:
+    """A CPU-side CUDA API call (``cuda...``, or the lower-level ``cu...``)."""
+    return not _is_device(e) and e.name.startswith("cu")
+
+
+def device_kernels(prof) -> list:
+    """The device events of a profile that are work (kernels, copies and
+    fills), not device-side annotation spans: those of the call inside the
+    `CALL_RANGE` range where `profile_call` made the profile, else all.
+    Each is linked to its CPU-side launch by correlation id.  Raises
+    `LostDeviceEvents` if a launch, copy or fill of the call has none."""
+    events = prof.events()
+    work = [e for e in events if _is_device(e) and not e.is_user_annotation]
+    if not work:
+        return []
+    call = [e for e in events if not _is_device(e) and e.name == CALL_RANGE]
+    runtime = [e for e in events if _is_runtime(e) and (
+        not call or call[0].time_range.start <= e.time_range.start
+        <= call[0].time_range.end)]
+    ids = {e.id for e in runtime}
+    kernels = [e for e in work if e.id in ids]
+    done = {e.id for e in kernels}
+    lost = [e.name for e in runtime
+            if any(a in e.name for a in _LAUNCH_APIS) and e.id not in done]
+    if lost:
+        raise LostDeviceEvents(
+            f"the profile lost the device events of {len(lost)} of the "
+            f"call's {len(kernels) + len(lost)} launches, copies and fills "
+            f"({sorted(set(lost))}); its kernel histogram would be wrong")
+    return kernels
+
+
+def kernel_histogram_of(prof) -> Dict[str, int]:
+    """Normalised kernel name (`kernel_name`) -> launches in a recorded
+    profile.  Raises if it holds no device kernel (no CUDA activity, or no
+    CUPTI): a profile of the CPU is no stand-in for the card's."""
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError(
+            "the profile holds no device kernel (no CUDA activity was "
+            "recorded, or CUPTI is not available); the kernel histogram "
+            "has no CPU stand-in")
+    return dict(collections.Counter(kernel_name(e.name) for e in kernels))
+
+
+def kernel_histogram(fn: Callable, *args) -> Dict[str, int]:
+    """The compiled side of the §V-B study on the card: one warm call of
+    ``fn`` (its first call, outside the profile, loads every kernel), then
+    one call under ``torch.profiler`` with CUDA activity (`profile_call`);
+    normalised kernel name -> launches, copies and fills under their own
+    names.  Raises where there is no CUDA device, the profile holds no
+    device kernel, or every profile taken lost device events."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_histogram counts the kernels a call "
+                           "launches on a CUDA device, and there is none")
+    fn(*args)
+    torch.cuda.synchronize()
+    return kernel_histogram_of(profile_call(fn, *args, cuda=True))
+
+
+def _aten(e) -> bool:
+    return e.name.startswith("aten::")
+
+
+def _top_level(e, needle=None) -> bool:
+    """Whether ATen op ``e`` has no other ATen op around it (what the caller
+    ran, not what that decomposes into) up to the root, or, with
+    ``needle``, up to a range whose label contains it (then it must lie in
+    one)."""
+    p = e.cpu_parent
+    while p is not None:
+        if _aten(p):
+            return False
+        if needle is not None and needle in p.name:
+            return True
+        p = p.cpu_parent
+    return needle is None
+
+
+def cpu_op_histogram(prof) -> Dict[str, int]:
+    """ATen op name -> count over the top-level ATen ops of a CPU profile:
+    the compiled side of the §V-B study where there is no card (the ops the
+    CPU ran, not kernels)."""
+    return dict(collections.Counter(
+        e.name[len("aten::"):] for e in prof.events()
+        if not _is_device(e) and _aten(e) and _top_level(e)))
+
+
+def find_scope_labels(prof, needle: str) -> List[str]:
+    """The executed ops of a recorded profile of one call whose launch lies
+    inside a range whose label contains ``needle`` (`models/layers.scope`):
+    zero-overhead marker location (paper §III-D2; the reference reads the
+    ``named_scope`` metadata of its compiled HLO).  On the card they are the
+    device kernels (normalised names) that run inside a device-side span of
+    such a range: the profiler draws one over the kernels of each range
+    instance on the device's timeline, and a kernel launched from Python, as
+    the port's own are, has no launching ATen op to link it to its range.
+    In a profile without device kernels they are the ATen ops that the
+    range ran, each as its top-level op."""
+    events = prof.events()
+    kernels = device_kernels(prof)
+    if not kernels:
+        return [e.name[len("aten::"):] for e in events
+                if not _is_device(e) and _aten(e) and _top_level(e, needle)]
+    spans = [e for e in events if _is_device(e) and e.is_user_annotation
+             and needle in e.name]
+    return [kernel_name(k.name) for k in kernels
+            if any(sp.device_index == k.device_index
+                   and sp.time_range.start <= k.time_range.start
+                   and k.time_range.end <= sp.time_range.end
+                   for sp in spans)]

@@ -21,7 +21,12 @@
 # the roofline reads.  `remat="full"`: the reference's walker recurses into
 # the `checkpoint` equation of the backward, so it counts the recomputed
 # forward; the port's backward trace holds the recompute too (equal matmul
-# FLOPs, tests/test_torch_dryrun_trace.py).
+# FLOPs, tests/test_torch_dryrun_trace.py), and with `--remat selective` only
+# the recomputed batched products (tests/test_torch_remat_trace.py).  With
+# `--weight-quant int4` a payload is stored packed, two values a byte
+# (`layers.stored_shape`): the reference's 0.5 B a value.  A train cell with
+# int8 or int4 weights errs in both packages: a train step differentiates
+# every parameter, and an integer payload has no gradient.
 # Fields of the reference's dict with no counterpart, left out: `compile_s`,
 # the `mem_*` of `memory_analysis`, `hlo_bytes`, and the `cost_analysis`
 # entries other than "flops" and "bytes accessed"; of its CLI, `--dump-hlo`.
@@ -95,10 +100,6 @@ def _shard_shape(shape, sharding):
     return tuple(out)
 
 
-def _itemsize(dtype) -> float:
-    return 0.5 if "int4" in str(dtype) else dtype.itemsize
-
-
 def _pairs(tree, shardings):
     """(leaf, sharding) of two trees of one structure (dicts, NamedTuples,
     lists); a sharding is a ``(mesh, placements)`` pair or None."""
@@ -113,11 +114,10 @@ def _pairs(tree, shardings):
 
 
 def _tree_bytes_per_device(struct_tree, shardings) -> int:
-    total = 0.0
-    for s, sh in _pairs(struct_tree, shardings):
-        total += float(math.prod(_shard_shape(s.shape, sh))) * \
-            _itemsize(s.dtype)
-    return int(total)
+    """Bytes of one device's shards (an int4 payload is stored packed, two
+    values a byte: the reference's 0.5 B a value)."""
+    return sum(math.prod(_shard_shape(s.shape, sh)) * s.dtype.itemsize
+               for s, sh in _pairs(struct_tree, shardings))
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +147,8 @@ def _fake_tree(tree, shardings, device):
 def _spec_struct(specs, param_dtype):
     from repro_torch.models import layers as L
     return L.map_specs(lambda s: torch.empty(
-        s.shape, dtype=L.spec_dtype(s) or param_dtype, device="meta"), specs)
+        L.stored_shape(s), dtype=L.spec_dtype(s) or param_dtype,
+        device="meta"), specs)
 
 
 def _batch_shardings(mesh, plan, batch):

@@ -1,7 +1,9 @@
 # Counterpart of src/repro/models/layers.py; nothing of it is left unported.
-# ``quantize_specs(..., "int4")`` gives specs whose payload no tensor here can
-# hold (torch has no int4): as in the reference it serves the dry-run's
-# shapes only, and `transformer.require_ported` refuses int4 weights.
+# torch has no int4 storage (``torch.int4`` is a shell: one byte an element,
+# no ``copy_``), so an int4 payload is stored two values a ``uint8``, packed
+# along the kernel's "embed" axis (`pack_int4`), and unpacked to the compute
+# dtype on use, as the reference's `get_kernel` casts its int4 leaves.
+# `scope` is the port's ``jax.named_scope``: a label that only a profile sees.
 """Parameter machinery + elementary layers (plain functions on tensors).
 
 Parameters are nested dicts of tensors with the key names and shapes of the
@@ -10,6 +12,7 @@ logical axis names are kept so that the two packages' specs read alike.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -39,6 +42,9 @@ class ParamSpec:
     dtype: Optional[str] = None   # override model param dtype (int8 quant)
 
     def instantiate(self, gen: torch.Generator, dtype, device) -> torch.Tensor:
+        if self.dtype == "int4":          # zeros, as `quantize_specs` asks
+            return torch.zeros(stored_shape(self), dtype=torch.uint8,
+                               device=device)
         if self.dtype is not None:
             dtype = spec_dtype(self)
         if self.init_fn is not None:
@@ -55,7 +61,9 @@ class ParamSpec:
         return (std * normal(gen, self.shape, device)).to(dtype)
 
 
-SPEC_DTYPES = {"int8": torch.int8, "float32": torch.float32}
+# the storage dtype of a spec's override; an int4 payload is packed uint8
+SPEC_DTYPES = {"int8": torch.int8, "int4": torch.uint8,
+               "float32": torch.float32}
 
 
 def spec_dtype(spec: ParamSpec):
@@ -64,9 +72,69 @@ def spec_dtype(spec: ParamSpec):
         return None
     if spec.dtype not in SPEC_DTYPES:
         raise NotImplementedError(
-            f"parameter dtype {spec.dtype!r} has no tensor type here (the "
-            "reference's int4 specs serve its dry-run only)")
+            f"parameter dtype {spec.dtype!r} has no tensor type here")
     return SPEC_DTYPES[spec.dtype]
+
+
+def int4_axis(axes: Tuple[Optional[str], ...]) -> int:
+    """The axis an int4 payload is packed along: the kernel's "embed" axis,
+    which every kernel has (its input axis, or its output axis where the
+    input is heads, the MLP or the SSM's inner width).  d_model is a
+    multiple of 64 in every config, so every plan that shards it (FSDP over
+    up to 32 ranks) still divides it after halving; the heads of an output
+    projection would not."""
+    return axes.index("embed")
+
+
+def stored_shape(spec: ParamSpec) -> Tuple[int, ...]:
+    """The shape of the tensor that holds ``spec``: its own, but for an int4
+    payload, whose packed axis (`int4_axis`) holds two values a byte."""
+    if spec.dtype != "int4":
+        return tuple(spec.shape)
+    axis = int4_axis(spec.axes)
+    return tuple(n // 2 if i == axis else n for i, n in enumerate(spec.shape))
+
+
+def pack_int4(values: torch.Tensor, axis: int) -> torch.Tensor:
+    """Integer values in [-8, 7] -> uint8, two a byte along ``axis``: value
+    ``2i`` in the low nibble of byte ``i``, value ``2i + 1`` in the high one
+    (two's complement nibbles), so a shard of the bytes holds a shard of the
+    values."""
+    v = values.to(torch.int8).movedim(axis, -1)
+    if v.shape[-1] % 2:
+        raise ValueError(f"int4 packing: axis {axis} of {tuple(values.shape)} "
+                         "is odd")
+    lo = (v[..., 0::2] & 15).to(torch.uint8)
+    hi = (v[..., 1::2] & 15).to(torch.uint8)
+    return (lo | (hi << 4)).movedim(-1, axis).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor, axis: int) -> torch.Tensor:
+    """The inverse of `pack_int4`: int8 values in [-8, 7], twice as many
+    along ``axis``.  Each nibble is sign-extended by an arithmetic shift."""
+    p = packed.movedim(axis, -1)
+    lo = (p << 4).view(torch.int8) >> 4
+    hi = p.view(torch.int8) >> 4
+    v = torch.stack([lo, hi], dim=-1).flatten(-2)
+    return v.movedim(-1, axis)
+
+
+def _unpack_payload(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A layer's packed int4 payload as int8 values.  Its contraction axis
+    is 0 (the scale has every other axis), so the packed axis is 0 where the
+    payload's other axes are the scale's, else the last one.  A DTensor is
+    unpacked shard by shard: a shard of the bytes is a shard of the values
+    (`pack_int4`), so the placements carry over."""
+    axis = 0 if tuple(q.shape[1:]) == tuple(scale.shape) else q.ndim - 1
+    if not isinstance(q, DTensor):
+        return unpack_int4(q, axis)
+    local = unpack_int4(q.to_local(), axis)
+    shape = list(q.shape)
+    shape[axis] *= 2
+    full = torch.Size(shape)
+    return DTensor.from_local(local, q.device_mesh, q.placements,
+                              run_check=False, shape=full,
+                              stride=torch.empty(full, device="meta").stride())
 
 
 def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -83,6 +151,30 @@ def map_specs(fn: Callable[[ParamSpec], Any], specs: Dict[str, Any]):
     """Apply ``fn`` to every ParamSpec leaf of a nested dict, in key order."""
     return {k: fn(v) if is_spec(v) else map_specs(fn, v)
             for k, v in specs.items()}
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """The label of a block (the reference's ``jax.named_scope``): a
+    ``torch.profiler.record_function`` range while a profiler records and no
+    trace runs, so that `core.hlo_analysis.find_scope_labels` finds the
+    block's ops in the profile.  Otherwise it does nothing: no ATen op, no
+    launch, and no node in a ``make_fx`` graph (the unit of work counts every
+    node) or a fake-tensor program."""
+    if torch.autograd.profiler._is_profiler_enabled and not _tracing():
+        with torch.autograd.profiler.record_function(name):
+            yield
+    else:
+        yield
+
+
+def _tracing() -> bool:
+    """Whether a ``make_fx`` trace, a fake-tensor mode or a compile is
+    active, where a profiler range would become a node of the program."""
+    keys = torch._C._TorchDispatchModeKey
+    return (torch._C._get_dispatch_mode(keys.PROXY) is not None
+            or torch._C._get_dispatch_mode(keys.FAKE) is not None
+            or torch.compiler.is_compiling())
 
 
 def init_tree(gen: torch.Generator, specs: Dict[str, Any], dtype,
@@ -173,12 +265,16 @@ def dense_specs(d_in: int, d_out: int, axes: Tuple[Optional[str], ...],
 
 def get_kernel(params: Params, compute_dtype) -> torch.Tensor:
     """The projection's kernel in compute dtype.  Weight-only quantization
-    (serving): an int8 kernel with a per-output-channel f32 scale is
-    dequantized on use, in compute dtype, as the reference does.  A DTensor
-    kernel is gathered over its FSDP mesh dims first (`fsdp_gather`)."""
+    (serving): an int8 or int4 kernel with a per-output-channel f32 scale is
+    dequantized on use, in compute dtype, as the reference does (an int4
+    payload unpacked first).  A DTensor kernel is gathered over its FSDP
+    mesh dims first (`fsdp_gather`)."""
     if "kernel_q" in params:
-        q = fsdp_gather(params["kernel_q"]).to(compute_dtype)
-        return q * fsdp_gather(params["kernel_scale"]).to(compute_dtype)[None]
+        q = fsdp_gather(params["kernel_q"])
+        scale = fsdp_gather(params["kernel_scale"])
+        if q.dtype == torch.uint8:
+            q = _unpack_payload(q, scale)
+        return q.to(compute_dtype) * scale.to(compute_dtype)[None]
     return fsdp_gather(params["kernel"]).to(compute_dtype)
 
 

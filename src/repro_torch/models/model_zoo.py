@@ -1,7 +1,7 @@
-# Counterpart of src/repro/models/model_zoo.py: every family, with int8
-# weights and cache, under a sharding plan, and the dry-run's input specs
-# (`input_specs`, `cache_specs_struct`: meta tensors where the reference has
-# ShapeDtypeStructs).  `cross_entropy` of DTensor logits gathers the
+# Counterpart of src/repro/models/model_zoo.py: every family, with int8 or
+# int4 weights and an int8 cache, under a sharding plan, and the dry-run's
+# input specs (`input_specs`, `cache_specs_struct`: meta tensors where the
+# reference has ShapeDtypeStructs).  `cross_entropy` of DTensor logits gathers the
 # vocabulary first (`_cross_entropy_sharded`); the reference leaves that to
 # its partitioner.
 """Unified model facade: build an architecture, expose init / loss /

@@ -1,8 +1,9 @@
 # Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM,
-# hybrid and VLM families (the enc-dec family is models/encdec.py).  Not
-# ported: `remat="selective"` (no config of the repo uses it).  The
-# `shard(...)` constraints are identities unless a plan is active and the
-# tensor is a DTensor (distributed/sharding.py).  The router's `rng` is a
+# hybrid and VLM families (the enc-dec family is models/encdec.py); nothing
+# of it is left unported.  The reference's ``jax.named_scope`` block labels
+# are `layers.scope` ranges, which only a profile sees.  The `shard(...)`
+# constraints are identities unless a plan is active and the tensor is a
+# DTensor (distributed/sharding.py).  The router's `rng` is a
 # `torch.Generator` (see models/moe.py).
 """Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families.
 
@@ -26,6 +27,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, dtype_of
@@ -42,18 +44,16 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise, naming the reason, for what the port does not run: a family
-    it lacks, int4 weights (the reference's int4 serves its dry-run only:
-    ROADMAP.md, Queue A, item 6), and the enc-dec family with an int8 cache
-    (the reference casts its k/v to int8 with no scale; ROADMAP.md, faults
-    of the reference)."""
+    it lacks, a weight quantization the reference has not (int8 and int4
+    run), and the enc-dec family with an int8 cache (the reference casts its
+    k/v to int8 with no scale; ROADMAP.md, faults of the reference)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported (ROADMAP.md)")
-    if cfg.weight_quant not in ("none", "int8"):
+    if cfg.weight_quant not in ("none", "int8", "int4"):
         raise NotImplementedError(
-            f"weight_quant={cfg.weight_quant!r}: only 'int8' runs; the "
-            "reference's int4 specs serve its dry-run (ROADMAP.md, Queue A, "
-            "item 6: dry-run / roofline)")
+            f"weight_quant={cfg.weight_quant!r}: the reference has 'int8' "
+            "and 'int4'")
     if cfg.cache_quant == "int8" and cfg.family == "encdec":
         raise NotImplementedError(
             "the enc-dec family with an int8 KV cache: the reference casts "
@@ -164,24 +164,101 @@ def unstack(stacked, n: int) -> List[Dict[str, Any]]:
     return [pick(parts, i) for i in range(n)]
 
 
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_PRODUCTS = {torch.ops.aten.bmm.default: 0,      # the batched operand
+                     torch.ops.aten.baddbmm.default: 1}
+
+
+def _saved_by_selective_remat(func, args) -> bool:
+    """The reference's ``dots_with_no_batch_dims_saveable``: a product with
+    no batch dims (the weight products: ``mm``, ``addmm``, and the ``bmm``
+    over a batch of one that ``torch.einsum`` makes of a weight product
+    with more output axes) is saved; everything else (attention's and the
+    experts' batched products, elementwise ops) is recomputed."""
+    if func in _WEIGHT_PRODUCTS:
+        return True
+    i = _BATCHED_PRODUCTS.get(func)
+    return i is not None and args[i].shape[0] == 1
+
+
+class _SaveProducts(TorchDispatchMode):
+    """The forward of a selectively rematerialised region: keeps a detached
+    alias of each saved product's output and its version, per op in call
+    order."""
+
+    def __init__(self, store):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _saved_by_selective_remat(func, args):
+            kept = out.detach()
+            self.store.setdefault(func, []).append((kept, kept._version))
+        return out
+
+
+class _ReuseProducts(TorchDispatchMode):
+    """The region's recomputation in the backward: a saved product returns
+    its kept output (the same call order) and runs no op; the rest runs.  A
+    kept output that the forward changed in place since raises."""
+
+    def __init__(self, store):
+        super().__init__()
+        self.store = store
+        self.seen = {}
+
+    def __enter__(self):
+        self.seen = {}                 # each recomputation starts over
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not _saved_by_selective_remat(func, args):
+            return func(*args, **(kwargs or {}))
+        i = self.seen.get(func, 0)
+        self.seen[func] = i + 1
+        kept, version = self.store[func][i]
+        if kept._version != version:
+            raise RuntimeError(f"selective remat: the saved output of {func} "
+                               "was changed in place after it was saved")
+        return kept
+
+
+def _selective_contexts():
+    """``checkpoint``'s ``context_fn`` for ``remat="selective"``.  (torch's
+    ``create_selective_checkpoint_contexts`` takes a ``make_fx`` trace for a
+    compile: there it keeps every op's output and leaves the choice to a
+    compiler's partitioner, so a traced backward, which the unit of work and
+    the dry-run price, would hold no recomputation at all, and the MoE
+    dispatch's in-place scatter fails its cache check.  These two modes
+    recompute the same way eagerly and under a trace.)"""
+    store = {}
+    return _SaveProducts(store), _ReuseProducts(store)
+
+
 def _maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
-    """``fn`` recomputed in the backward (``remat="full"``), when grad is
-    enabled; as it is otherwise.  The recomputation runs under the sharding
-    plan that is active now: the backward of CUDA tensors runs on another
-    thread, which does not see this thread's plan, and without it the
-    recomputed layer would place its tensors otherwise than the forward."""
+    """``fn`` recomputed in the backward when grad is enabled: all of it
+    (``remat="full"``), or all but its products without batch dims
+    (``"selective"``, `_saved_by_selective_remat`); as it is
+    otherwise.  The recomputation runs under the sharding plan that is
+    active now: the backward of CUDA tensors runs on another thread, which
+    does not see this thread's plan, and without it the recomputed layer
+    would place its tensors otherwise than the forward."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat != "full":
+    if cfg.remat not in ("full", "selective"):
         raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported (the port has 'full' and "
-            "'none')")
+            f"remat={cfg.remat!r}: the reference has 'none', 'full' and "
+            "'selective'")
     plan = active_rules()
 
     def under_plan(*args, **kw):
         with use_rules(plan):
             return fn(*args, **kw)
-    return functools.partial(checkpoint, under_plan, use_reentrant=False)
+    kw = {"context_fn": _selective_contexts} if cfg.remat == "selective" \
+        else {}
+    return functools.partial(checkpoint, under_plan, use_reentrant=False,
+                             **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +287,11 @@ def _attn_out(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
 
 def _attn_block(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
                 *, plus_one: bool, aux: Dict, rope=None):
-    y, kv = _attn_out(p, cfg, dims, x, positions, window, plus_one=plus_one,
-                      rope=rope)
-    return x + y, kv
+    # the block's label: a profile locates its ops by it (paper §III-D2)
+    with L.scope("nugget_block_attn"):
+        y, kv = _attn_out(p, cfg, dims, x, positions, window,
+                          plus_one=plus_one, rope=rope)
+        return x + y, kv
 
 
 def _ffn(p, cfg, h, *, aux: Dict, rng=None):
@@ -227,11 +306,12 @@ def _ffn(p, cfg, h, *, aux: Dict, rng=None):
 
 
 def _mlp_block(p, cfg, x, *, plus_one: bool, aux: Dict, rng=None):
-    h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
-    y = _ffn(p, cfg, h, aux=aux, rng=rng)
-    if "moe" not in p:
-        y = shard(y, "batch", "seq", "act_embed")
-    return x + y
+    with L.scope("nugget_block_moe" if "moe" in p else "nugget_block_mlp"):
+        h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
+        y = _ffn(p, cfg, h, aux=aux, rng=rng)
+        if "moe" not in p:
+            y = shard(y, "batch", "seq", "act_embed")
+        return x + y
 
 
 def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
@@ -253,8 +333,9 @@ def dense_layer(p, cfg, dims, x, positions, window, *, plus_one=False,
 
 def ssm_layer(p, cfg, x, *, aux=None):
     aux = {} if aux is None else aux
-    h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
-    return x + S.mamba2_block(p["ssm"], cfg, h), aux
+    with L.scope("nugget_block_mamba"):
+        h = L.rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+        return x + S.mamba2_block(p["ssm"], cfg, h), aux
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,12 @@ def init_train_state(model: Model, init: Union[torch.Generator, Dict[str, Any]],
     else:
         params = model.params_on_device(init)
     for p in tree_leaves(params):
+        if not p.is_floating_point():
+            raise NotImplementedError(
+                f"weight_quant={model.cfg.weight_quant!r}: a train step "
+                "differentiates every parameter, and an integer payload has "
+                "no gradient (weight-only quantization serves; the "
+                "reference's value_and_grad refuses integer leaves too)")
         p.requires_grad_(True)
     opt = init_opt_state(params, opt_cfg)
     meter = init_meter(table, model.device) if table is not None else None

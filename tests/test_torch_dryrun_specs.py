@@ -35,25 +35,30 @@ def _abstract_mesh(kind):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_model(arch, mode, shape_name, kind):
+def _jax_model(arch, mode, shape_name, kind, **knobs):
+    """``knobs``: config fields set as the reference's `run_cell` sets its
+    ``remat`` / ``weight_quant``; the plan sees the quantized bytes."""
+    import dataclasses
     from repro.configs import get_config
     from repro.distributed.sharding import plan_for
     from repro.models.model_zoo import build_model
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **knobs)
     mesh = _abstract_mesh(kind)
-    plan = plan_for(mesh, arch, mode, shape_name, cfg.param_count())
+    bytes_per_param = {"int8": 1.0, "int4": 0.5}.get(cfg.weight_quant, 2.0)
+    plan = plan_for(mesh, arch, mode, shape_name,
+                    int(cfg.param_count() * bytes_per_param / 2))
     return cfg, mesh, plan, build_model(cfg, plan)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_table(arch, shape_name, kind):
+def _jax_table(arch, shape_name, kind, **knobs):
     from repro.configs import SHAPES
     from repro.core.blocks_lm import build_block_table
-    *_, model = _jax_model(arch, "train", shape_name, kind)
+    *_, model = _jax_model(arch, "train", shape_name, kind, **knobs)
     return build_block_table(model, SHAPES[shape_name])
 
 
-def _reference_layout(arch, shape_name, kind):
+def _reference_layout(arch, shape_name, kind, **knobs):
     """The reference dry-run's plan fields and bytes of one cell, without
     lowering (`src/repro/launch/dryrun.py:run_cell`, lines 103-152 and the
     `_tree_bytes_per_device` calls)."""
@@ -67,7 +72,8 @@ def _reference_layout(arch, shape_name, kind):
     from repro.train.state import TrainState, init_train_state
     shape = SHAPES[shape_name]
     mode = "train" if shape.kind == "train" else "serve"
-    cfg, mesh, plan, model = _jax_model(arch, mode, shape_name, kind)
+    cfg, mesh, plan, model = _jax_model(arch, mode, shape_name, kind,
+                                        **knobs)
     dp = int(np.prod([mesh.shape[a] for a in plan.dp_axes])) \
         if plan.dp_axes else 1
     eff = dp * plan.tp_size
@@ -85,7 +91,7 @@ def _reference_layout(arch, shape_name, kind):
         if kind == "multi":
             mb = max(1, mb // 2)
         out["microbatch"] = mb
-        table = _jax_table(arch, shape_name, kind)
+        table = _jax_table(arch, shape_name, kind, **knobs)
         st = jax.eval_shape(lambda: init_train_state(
             model, jax.random.PRNGKey(0), AdamWConfig(), table))
         rep = NamedSharding(mesh, P())

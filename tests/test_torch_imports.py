@@ -1,6 +1,7 @@
-"""The port stands alone: no module of it imports jax or the JAX package,
-every module imports with no GPU, no nvcc and no triton, and an entry point
-that is not asked for the CPU raises where there is no card."""
+"""The port stands alone: no module of it, of its examples
+(`examples_torch/`) or `chip_smoke.py` imports jax, the JAX package or its
+benchmarks, every module imports with no GPU, no nvcc and no triton, and an
+entry point that is not asked for the CPU raises where there is no card."""
 import ast
 import importlib
 import pathlib
@@ -11,8 +12,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "triton"}
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "benchmarks", "triton"}
 
 
 def _imports(path):
@@ -61,6 +63,9 @@ def test_sources_were_found():
     assert (PKG / "kernels" / "csrc" / "flash_decode.cu").exists()
     assert (PKG / "kernels" / "csrc" / "ssd.cu").exists()
     assert (PKG / "kernels" / "csrc" / "ssd_tc.cu").exists()
+    # the five examples of the JAX package, under the same names
+    assert [p.name for p in EXAMPLES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
 
 
 def _module_names():

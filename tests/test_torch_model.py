@@ -196,15 +196,16 @@ def test_configs_match_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
 def test_families_outside_the_slice_raise(arch):
-    """Every family is ported; what the port still refuses, naming where
-    ROADMAP.md says why: the enc-dec family with an int8 cache (a fault of
-    the reference) and int4 weights (the reference's dry-run only)."""
+    """Every family is ported, int4 weights too; what the port still
+    refuses, naming where ROADMAP.md says why: the enc-dec family with an
+    int8 cache (a fault of the reference) and a family it has not."""
     import dataclasses
     cfg = reduced(get_config(arch))
     build_model(cfg, device="cpu")
+    build_model(dataclasses.replace(cfg, weight_quant="int4"), device="cpu")
     bad = (dataclasses.replace(cfg, cache_quant="int8")
            if cfg.family == "encdec"
-           else dataclasses.replace(cfg, weight_quant="int4"))
+           else dataclasses.replace(cfg, family="rnn"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(bad, device="cpu")
 

@@ -115,9 +115,11 @@ def test_quantized_init_takes_the_spec_dtypes():
                                                     + wq["kernel_q"].shape[2:])
     float_specs = build_model(reduced(get_config("qwen3-1.7b")),
                               device="cpu").specs()
-    with pytest.raises(NotImplementedError, match="int4"):
-        PL.quantize_specs(float_specs, "int4")["layers"]["attn"]["wq"][
-            "kernel_q"].instantiate(torch.Generator(), torch.float32, "cpu")
+    spec = PL.quantize_specs(float_specs, "int4")["layers"]["attn"]["wq"][
+        "kernel_q"]
+    packed = spec.instantiate(torch.Generator(), torch.float32, "cpu")
+    assert packed.dtype == torch.uint8 and not packed.any()
+    assert tuple(packed.shape) == PL.stored_shape(spec)
 
 
 @pytest.mark.parametrize("shape,scale", [((3, 5, 4, 16), 3.0),
@@ -241,10 +243,18 @@ def test_int8_engine_matches_the_jax_engine(qpair):
 
 
 def test_int4_weights_are_refused():
-    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
-                              weight_quant="int4")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(cfg, device="cpu")
+    """int4 weights serve (tests/test_torch_int4.py); a train step refuses
+    them, as it refuses int8's: an integer payload has no gradient (the
+    reference's value_and_grad refuses integer leaves too)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    for quant in ("int4", "int8"):
+        cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
+                                  weight_quant=quant)
+        m = build_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="integer payload"):
+            init_train_state(m, torch.Generator().manual_seed(0),
+                             AdamWConfig())
 
 
 def test_int8_cache_on_an_ssm_family_raises_as_the_reference():
