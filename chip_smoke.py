@@ -6,52 +6,62 @@
 Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
 intra-chunk) from the sources in this checkout, holds each kernel against its
 plain PyTorch version on the card (a sweep of small shapes and the serving
-paths' full-width shapes, timed), then serves 16 requests on each of eight
-paths in turn (bf16, random weights from seed 0) through the port's
-``ServeEngine``: qwen3-1.7b, the same with int8 weights (quantized from its
-weights) and an int8 KV cache (``qwen3-1.7b/int8``), the same with int4
-weights (random nibbles from seed 0, two a byte; ``qwen3-1.7b/int4``),
-mamba2-780m,
-zamba2-1.2b, olmoe-1b-7b, whisper-tiny (its encoder's K1 not causal over
-1500 frames) and internvl2-76b at its published widths with 8 of its 80
-layers.  For each path it checks by the launch counters that every
-prefill went through the kernels of its layers (K1 per attention layer, K3
-per Mamba2 layer) and every decode step through K2 per attention layer,
-holds the kernel path against the plain path on the card (in bf16 and in f32
-activations; for MoE with the share of routing decisions that differ), and
-builds the interval profile of the run.  Then the model-accuracy study of
-the paper's §V-B (``accuracy``): for qwen3-1.7b, mamba2-780m and olmoe-1b-7b
-(4 of 16 layers) the ATen graph of the loss forward against the kernels one
-call runs under torch.profiler, their largest deltas, and the block labels
-locating K1, K3 and the products in their blocks.  Then it trains full-width
-qwen3-1.7b for 6 steps through the port's ``Trainer`` (bf16, AdamW with the
-f32 master, the work meter in the step, the interval profile at the end) on
-the chunked attention, which is how the JAX package trains: K1, K2 and K3
-must launch 0 times there, and on a tensor that requires grad each kernel
-wrapper must refuse to run; ``remat="selective"`` against ``"full"`` on one
-state and batch (equal loss; peak memory and step time); and olmoe-1b-7b at full width with 4 of its 16
+paths' full-width shapes, timed; gemma3-4b's at a windowed and at a global
+layer), then serves 16 requests on each of twelve paths in turn (bf16, random
+weights from seed 0) through the port's ``ServeEngine``: qwen3-1.7b, the same
+with int8 weights (quantized from its weights) and an int8 KV cache
+(``qwen3-1.7b/int8``), the same with int4 weights (random nibbles from seed
+0, two a byte; ``qwen3-1.7b/int4``), mamba2-780m, zamba2-1.2b, olmoe-1b-7b,
+whisper-tiny (its encoder's K1 not causal over 1500 frames), internvl2-76b at
+its published widths with 8 of its 80 layers, gemma3-4b at full depth
+(prompts of 1536 tokens and a max_seq of 2048, so that every prefill and
+decode step of its 29 local layers crosses their window of 1024 tokens; the
+same prefill with every window removed must move the logits past the path's
+limit), qwen2.5-14b at full depth (48 layers, QKV bias),
+llama4-scout-17b-a16e with 4 of its 48 layers (top-1 routing and a shared
+expert) and mistral-large-123b with 4 of its 88 layers (a GQA group of 12:
+K2's two head blocks); each cut is named in the path's ``reduced``. For each
+path it checks by the launch counters that every prefill went through the
+kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and every
+decode step through K2 per attention layer, holds the kernel path against the
+plain path on the card (in bf16 and in f32 activations; for MoE with the
+share of routing decisions that differ), and builds the interval profile of
+the run. Then the model-accuracy study of the paper's §V-B (``accuracy``):
+for qwen3-1.7b, mamba2-780m and olmoe-1b-7b (4 of 16 layers) the ATen graph
+of the loss forward against the kernels one call runs under torch.profiler,
+their largest deltas, and the block labels locating K1, K3 and the products
+in their blocks. Then it trains full-width qwen3-1.7b for 6 steps through the
+port's ``Trainer`` (bf16, AdamW with the f32 master, the work meter in the
+step, the interval profile at the end) on the chunked attention, which is how
+the JAX package trains: K1, K2 and K3 must launch 0 times there, and on a
+tensor that requires grad each kernel wrapper must refuse to run;
+``remat="selective"`` against ``"full"`` on one state and batch (equal loss;
+peak memory and step time); and olmoe-1b-7b at full width with 4 of its 16
 layers (the MoE train check: the router's loss, the expert token counts and
-the profile's expert columns).  Then the staged nugget pipeline, through the
+the profile's expert columns). Then the staged nugget pipeline, through the
 port's ``Pipeline`` (profile, select, mark, baseline, replay, validate):
-full-width qwen3-1.7b on platforms bf16 and f32 in a fresh store (every
-stage computes), a warm rerun (every stage hits, no ``Trainer`` is built),
-a selector change (profile and baselines hit, the rest re-runs), full-width
+full-width qwen3-1.7b on platforms bf16 and f32 in a fresh store (every stage
+computes), a warm rerun (every stage hits, no ``Trainer`` is built), a
+selector change (profile and baselines hit, the rest re-runs), full-width
 mamba2-780m on bf16, and ``workers=4`` against serial at the reduced size;
-K1, K2 and K3 must launch 0 times there too.  Last, the distributed phase:
-an NCCL process group of world size 1 and a ``(data, model)`` DeviceMesh;
-the sharded train step of full-width qwen3-1.7b (DTensor parameters and
-optimizer state placed by the training plan) against the plain step from
-the same parameters, the int8 ``compressed_psum`` of a gradient tree,
-``meter_psum``, an elastic restore onto the mesh, ``gpipe`` at one stage,
-the fault-injected training run at the reduced size, and every kernel
-wrapper refusing a DTensor.  Then the dry-run phase: seven cells of the
-dry-run's grid, each in a process of its own on fake CUDA tensors (as rank 0
-of a fake process group of the production mesh's 256 or 512 ranks), their
-roofline rows (priced with the H100 datasheet's figures), and the one-card
-check: the train configuration, a decode step and a prefill priced on a
-(1, 1) mesh of this card, whose bytes per device must equal what the card
-allocates for the same trees and whose roofline bound must not exceed the
-device-busy time that torch.profiler measures for the same step.
+K1, K2 and K3 must launch 0 times there too. Last, the distributed phase: an
+NCCL process group of world size 1 and a ``(data, model)`` DeviceMesh; the
+sharded train step of full-width qwen3-1.7b (DTensor parameters and optimizer
+state placed by the training plan) against the plain step from the same
+parameters, the int8 ``compressed_psum`` of a gradient tree, ``meter_psum``,
+an elastic restore onto the mesh, ``gpipe`` at one stage, the fault-injected
+training run at the reduced size, and every kernel wrapper refusing a
+DTensor; the sharded step's kernels against the plain step's, by kernel name,
+on a line of its own (``distributed_kernel_delta``). Then the dry-run phase:
+seven cells of the dry-run's grid, each in a process of its own on fake CUDA
+tensors (as rank 0 of a fake process group of the production mesh's 256 or
+512 ranks), their roofline rows (priced with the H100 datasheet's figures),
+and the one-card check: the train configuration, a decode step and a prefill
+priced on a (1, 1) mesh of this card, whose bytes per device must equal what
+the card allocates for the same trees, whose roofline bound must not exceed
+the device-busy time that torch.profiler measures for the same step, and
+whose predicted peak (the memory analysis: arguments plus temporaries) must
+meet the allocator's requested peak over the train step and a decode step.
 
 Every phase prints one JSON object on a line of its own.  The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches on the serving paths,
@@ -65,7 +75,7 @@ gated).  The last line is
 non-zero; with no CUDA device it exits non-zero at once.
 
 ``--phases device,build,kernels`` and ``--paths mamba2-780m`` (or
-``--paths qwen3-1.7b,qwen3-1.7b/int8``, ``--paths whisper-tiny``) run a subset
+``--paths qwen3-1.7b,qwen3-1.7b/int8``, ``--paths gemma3-4b``) run a subset
 while developing (the last two lines are then not printed); the extra phase
 ``trace`` (after ``serve``) breaks a decode step and a prefill of each path
 down by kernel with ``torch.profiler``, and ``plans`` (after ``kernels``)
@@ -361,9 +371,20 @@ def _bound(n_bytes: float, flops: float, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _time_flash_attention(gen, b, s, h, kv, hd, cap, causal=True) -> dict:
+def _window_mask(s: int, window: int, device="cuda"):
+    """[S, S] bool: row i sees keys j <= i with i - j < window, the
+    library's mask of a causal layer with a sliding window."""
+    i = torch.arange(s, device=device)
+    d = i[:, None] - i[None, :]
+    return (d >= 0) & (d < window)
+
+
+def _time_flash_attention(gen, b, s, h, kv, hd, cap, causal=True,
+                          window=-1) -> dict:
     """K1 in bf16, causal or not, against its plain version, timed beside
-    the plain version and one library call (with the same `is_causal`)."""
+    the plain version and one library call (with the same `is_causal`; with
+    a ``window``, causal, the window as a boolean mask, which takes another
+    of the library's backends than `is_causal` does)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_plan,
                                                      flash_attention,
@@ -372,33 +393,46 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap, causal=True) -> dict:
     q = _randn(gen, (b, s, h, hd), dtype)
     k = _randn(gen, (b, s, kv, hd), dtype)
     v = _randn(gen, (b, s, kv, hd), dtype)
-    kw = dict(group=h // kv, causal=causal, window=-1, cap=cap)
+    assert window < 0 or causal, "a window is timed on causal layers"
+    kw = dict(group=h // kv, causal=causal, window=window, cap=cap)
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     worst: dict = {}
-    _check("flash_attention", got, want, dtype, ("timed", b, s, h, kv, hd),
-           worst)
+    _check("flash_attention", got, want, dtype,
+           ("timed", b, s, h, kv, hd, window), worst)
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,S,hd] views
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                         enable_gqa=True).transpose(1, 2)
+    lib_kw = (dict(is_causal=causal) if window < 0 else
+              dict(attn_mask=_window_mask(s, window)))
+
+    def lib_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **lib_kw)
+    lib = lib_call().transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
     del got, want, lib
 
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    library_ms = time_ms(lib_call)
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
     # two products of 2*hd flops per (row, key) pair; causal: row i sees
-    # i + 1 keys, else all S
-    pairs = s * (s + 1) / 2 if causal else s * s
+    # i + 1 keys (at most `window`), else all S
+    if not causal:
+        pairs = s * s
+    elif window < 0 or window >= s:
+        pairs = s * (s + 1) / 2
+    else:
+        pairs = window * (window + 1) / 2 + (s - window) * window
     flops = 4.0 * hd * b * h * pairs
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
     plan = attention_plan(b, s, h, hd, dtype)
     return {"shape": {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
-                      "dtype": "bfloat16", "causal": causal},
+                      "dtype": "bfloat16", "causal": causal,
+                      "window": window},
+            "library_call": ("is_causal" if window < 0 else
+                             "attn_mask (the window, boolean)"),
             "plan": {"bq": plan.bq, "bk": plan.bk, "warps": plan.warps,
                      "kv_warps": plan.kv_warps, "blocks": plan.blocks,
                      "smem_bytes": plan.smem_bytes},
@@ -410,19 +444,20 @@ def _time_flash_attention(gen, b, s, h, kv, hd, cap, causal=True) -> dict:
 
 
 def full_width_flash_attention(gen, cfg, prefill_len: int,
-                               causal: bool = True) -> dict:
+                               causal: bool = True, window: int = -1) -> dict:
     """K1 at the serving path's prefill shape (``prefill_len`` rows; the
-    enc-dec encoder's: ``n_frames`` rows, not causal)."""
+    enc-dec encoder's: ``n_frames`` rows, not causal) and layer window."""
     a = cfg.attn
     return _time_flash_attention(gen, 1, prefill_len, a.n_heads, a.n_kv_heads,
-                                 a.head_dim, a.softcap, causal)
+                                 a.head_dim, a.softcap, causal, window)
 
 
-def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
-    """K2 in bf16 at lengths `lens`, against its plain version on the first
-    and last of `n_layers` stacked caches, timed over the layers in turn, as
-    the decode step walks them, so that no launch finds its cache rows in L2
-    from the launch before."""
+def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers,
+                       window=-1) -> dict:
+    """K2 in bf16 at lengths `lens` (and `window`), against its plain
+    version on the first and last of `n_layers` stacked caches, timed over
+    the layers in turn, as the decode step walks them, so that no launch
+    finds its cache rows in L2 from the launch before."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (decode_layout, flash_decode,
                                                   flash_decode_plain,
@@ -433,15 +468,21 @@ def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
     kc = _randn(gen, (n_layers, b, s, kv, hd), dtype)
     vc = _randn(gen, (n_layers, b, s, kv, hd), dtype)
     lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
-    kw = dict(group=h // kv, window=-1, cap=cap)
+    kw = dict(group=h // kv, window=window, cap=cap)
     worst: dict = {}
     for layer in (0, n_layers - 1):
         _check("flash_decode", flash_decode(q, kc[layer], vc[layer], lengths, **kw),
                flash_decode_plain(q, kc[layer], vc[layer], lengths, **kw),
-               dtype, ("timed", b, s, h, kv, hd), worst)
+               dtype, ("timed", b, s, h, kv, hd, window), worst)
 
-    seen = torch.tensor([min(x, s) for x in lens], device="cuda")
-    mask = (torch.arange(s, device="cuda")[None] < seen[:, None])[:, None, None]
+    # the keys each row sees: [lo, hi), its window's lower edge to its
+    # length, cut to the cache
+    lo = [max(0, x - window) if window > 0 else 0 for x in lens]
+    hi = [min(x, s) for x in lens]
+    assert all(a < b for a, b in zip(lo, hi)), (lo, hi)
+    pos = torch.arange(s, device="cuda")[None]
+    mask = ((pos < torch.tensor(hi, device="cuda")[:, None])
+            & (pos >= torch.tensor(lo, device="cuda")[:, None]))[:, None, None]
     qt = q.transpose(1, 2)                                  # [B,H,1,hd]
 
     def lib_call(layer):
@@ -467,14 +508,14 @@ def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
         inner=n_layers)
     library_ms = time_ms(over_layers(lib_call), inner=n_layers)
     elt = q.element_size()
-    keys = sum(min(x, s) for x in lens)          # what this run's data needs
+    keys = sum(b - a for a, b in zip(lo, hi))     # what this run's data needs
     n_bytes = elt * (2 * q.numel() + 2 * keys * kv * hd) + 4 * b
     flops = 4.0 * hd * h * keys
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
     n_splits, chunk = split_plan(b, kv, s, build.load().rt_flash_decode_tile())
     return {"shape": {"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
                       "dtype": "bfloat16", "lengths": lens,
-                      "stacked_layers": n_layers},
+                      "stacked_layers": n_layers, "window": window},
             "plan": {"n_splits": n_splits, "chunk": chunk,
                      "heads_per_block": head_blocks(h // kv)[1],
                      **decode_layout(hd, dtype)},
@@ -486,17 +527,18 @@ def _time_flash_decode(gen, b, s, h, kv, hd, cap, lens, n_layers) -> dict:
 
 
 def full_width_flash_decode(gen, cfg, batch: int, max_seq: int,
-                            prefill_len: int, n_layers: int) -> dict:
+                            prefill_len: int, n_layers: int,
+                            window: int = -1) -> dict:
     """K2 at the serving path's decode shape: lengths as a run has them,
     prefill_len plus a few dozen decoded tokens, one row near the cache's end
-    and one idle row that counted past it."""
+    and one idle row that counted past it; at a layer ``window``."""
     a = cfg.attn
     lens = [prefill_len + 1 + 9 * i for i in range(batch)]
     lens[-1] = max_seq + 5
     if batch > 2:
         lens[-2] = max_seq - 1
     return _time_flash_decode(gen, batch, max_seq, a.n_heads, a.n_kv_heads,
-                              a.head_dim, a.softcap, lens, n_layers)
+                              a.head_dim, a.softcap, lens, n_layers, window)
 
 
 def long_shapes(gen, cfg) -> dict:
@@ -708,7 +750,7 @@ def full_width_ssd(gen, cfg, prefill_len: int) -> dict:
             "bound_share": bound_ms / ms, "bytes": n_bytes, "flops": flops}
 
 
-def phase_kernels(paths, batch, max_seq) -> dict:
+def phase_kernels(paths, batch) -> dict:
     """Every kernel over its sweep, then at the full-width shapes that the
     serving paths give it, each timed (the enc-dec path's K1 at its encoder
     shape too; a quantized path takes its base path's shapes, K2 reading
@@ -719,7 +761,7 @@ def phase_kernels(paths, batch, max_seq) -> dict:
     out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
     out["flash_decode"]["sweep"] = sweep_flash_decode(gen)
     out["ssd_intra"]["sweep"] = sweep_ssd(gen)
-    for path, cfg, prefill_len in paths:
+    for path, cfg, prefill_len, max_seq in paths:
         if "/" in path:                 # a variant: its base path's shapes
             continue
         n_attn = n_attention_layers(cfg)
@@ -727,19 +769,28 @@ def phase_kernels(paths, batch, max_seq) -> dict:
             out["flash_attention"]["full_width"].append(dict(
                 arch=f"{path} encoder", **full_width_flash_attention(
                     gen, cfg, cfg.n_frames, causal=False)))
-        if n_attn:
+        # a path whose layers differ in window (gemma3-4b's local and
+        # global layers) is timed at each, over that many stacked layers
+        wins = cfg.layer_windows()
+        kinds = sorted(set(wins)) if len(set(wins)) > 1 else [-1]
+        for w in (kinds if n_attn else []):
+            label, layers = path, n_attn
+            if len(kinds) > 1:
+                label = f"{path} ({'global' if w < 0 else f'window {w}'})"
+                layers = wins.count(w)
             out["flash_attention"]["full_width"].append(dict(
-                arch=path,
-                **full_width_flash_attention(gen, cfg, prefill_len)))
+                arch=label, **full_width_flash_attention(
+                    gen, cfg, prefill_len, window=w)))
             out["flash_decode"]["full_width"].append(dict(
-                arch=path, **full_width_flash_decode(
-                    gen, cfg, batch, max_seq, prefill_len, n_attn)))
+                arch=label, **full_width_flash_decode(
+                    gen, cfg, batch, max_seq, prefill_len, layers,
+                    window=w)))
         if cfg.family in ("ssm", "hybrid"):
             out["ssd_intra"]["full_width"].append(
                 full_width_ssd(gen, cfg, prefill_len))
         gc.collect()
         torch.cuda.empty_cache()
-    dense = [cfg for _, cfg, _ in paths if cfg.family == "dense"]
+    dense = [p[1] for p in paths if p[1].family == "dense"]
     if dense:
         for name, res in long_shapes(gen, dense[0]).items():
             out[name]["long"] = res
@@ -750,7 +801,7 @@ def phase_kernels(paths, batch, max_seq) -> dict:
     return out
 
 
-def phase_plans(paths, batch, max_seq) -> None:
+def phase_plans(paths, batch) -> None:
     """Optional (`--phases ...,plans`): the measurements behind the launch
     plans.  At each attention path's shapes, K1 with every bf16 tile choice
     (8, 4 and 2 row warps) and K2 with 1 to 16 splits of the kv range; at
@@ -764,7 +815,7 @@ def phase_plans(paths, batch, max_seq) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtype = torch.bfloat16
     tile = build.load().rt_flash_decode_tile()
-    for path, cfg, prefill_len in paths:
+    for path, cfg, prefill_len, max_seq in paths:
         if cfg.family in ("ssm", "hybrid"):
             emit("plans", arch=path, ssd_intra=plans_ssd(gen, cfg,
                                                          prefill_len))
@@ -1035,6 +1086,10 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
 
     prefills = eng.kinds_log.count("prefill")
     decodes = eng.kinds_log.count("decode")
+    # a windowed path's every prompt, so every decode step too, is longer
+    # than its local layers' window
+    assert all(w < prefill_len for w in cfg.layer_windows()), \
+        (cfg.layer_windows(), prefill_len)
     assert stats["requests"] == n_requests, stats
     assert prefills == n_requests, (prefills, n_requests)
     assert launches == expected_launches(cfg, prefills, decodes), launches
@@ -1103,6 +1158,9 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
               "kernel_f32": build_model(dataclasses.replace(
                   cfg, compute_dtype="float32"))}
     batch_in = path_inputs(cfg, requests()[0].prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     logits, routes = path_logits(models, params, batch_in, max_seq)
     errs = {}
     for what in ("prefill_logits", "decode_logits"):
@@ -1140,6 +1198,7 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
             e["base_path_bf16_vs_f32_mean_rel"] = mean_rel(
                 base["kernel"][what], base["f32"][what])
         errs[what] = e
+    windows = window_control(cfg, params, batch_in, max_seq, logits, errs)
     kept = {name: logits[name] for name in ("kernel", "f32")}
     del logits, models
     first = None
@@ -1148,6 +1207,7 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
     elif cfg.family in ("moe", "encdec", "vlm") or cfg.weight_quant != "none":
         first = first_attention_vs_plain(cfg, model, params, batch_in)
 
+    checks_peak = torch.cuda.max_memory_allocated()   # the f32 models' too
     ref_eng = ServeEngine(ref_cfg, batch=batch, max_seq=max_seq,
                           prefill_len=prefill_len, instrument=False)
     ref_stats = ref_eng.run(params, requests())
@@ -1158,8 +1218,31 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
         same += sum(a == b for a, b in zip(out, r.output))
     emit("serve_vs_plain", arch=path, logits_max_abs_err=errs,
          greedy_tokens_agree=same / max(total, 1), tokens_compared=total,
-         first_layer=first, plain_path_stats=ref_stats)
+         first_layer=first, window_control=windows,
+         checks_peak_memory_bytes=checks_peak, plain_path_stats=ref_stats)
     return eng, launches, params, kept
+
+
+def window_control(cfg, params, batch_in, max_seq, logits, errs):
+    """On a path with windowed layers, the control that must fail: the same
+    prefill and decode step on the kernel path with every window set to -1
+    (every layer global) must move the logits past the path's limit, or the
+    kernels would not be shown to mask the keys below the window.  None on
+    a path without windows."""
+    from repro_torch.models.model_zoo import build_model
+    if all(w < 0 for w in cfg.layer_windows()):
+        return None
+    glob = build_model(dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, local_window=0)))
+    assert all(w < 0 for w in glob.cfg.layer_windows())
+    moved = path_logits({"kernel": glob}, params, batch_in, max_seq)[0]
+    out = {"windows": sorted(set(cfg.layer_windows())),
+           "prompt_len": int(batch_in["tokens"].shape[1])}
+    for what in ("prefill_logits", "decode_logits"):
+        d = (moved["kernel"][what] - logits["kernel"][what]).abs().max().item()
+        assert d > errs[what]["limit"], (what, d, errs[what]["limit"])
+        out[what] = {"global_vs_windowed": d, "limit": errs[what]["limit"]}
+    return out
 
 
 def mean_rel(a, b) -> float:
@@ -2351,6 +2434,7 @@ def phase_distributed(tmp) -> dict:
         state, plain_losses, plain_ms = _timed_steps(step1, state, batches)
         plain_trace = train_step_trace(lambda: step1(state, batches[0]))
         plain_peak = torch.cuda.max_memory_allocated()
+        plain_kernels = step_kernels(lambda: step1(state, batches[0]))
         # kept in host memory, so that the two runs' peaks compare
         plain_params = tree_map(lambda t: t.detach().to("cpu", copy=True),
                                 state.params)
@@ -2383,6 +2467,9 @@ def phase_distributed(tmp) -> dict:
             sharded_trace = train_step_trace(
                 lambda: step2(state, sbatches[0]))
             sharded_peak = torch.cuda.max_memory_allocated()
+            sharded_kernels = step_kernels(lambda: step2(state, sbatches[0]))
+            emit("distributed_kernel_delta", **kernel_delta(plain_kernels,
+                                                            sharded_kernels))
             leaf, mu = tree_leaves(state.params)[0], tree_leaves(
                 state.opt.mu)[0]
             assert type(leaf).__name__ == "DTensor" and \
@@ -2393,8 +2480,10 @@ def phase_distributed(tmp) -> dict:
             assert max(rel) < DIST_LOSS_TOL, (plain_losses, sharded_losses)
             assert table1.names == table2.names
             assert table1.step_uow() == table2.step_uow()
+            # the timed steps, the trace's two and the profiles' one each
+            steps_run = DIST_STEPS + 2 + sharded_kernels["profiles_taken"]
             assert int(state.meter["uow"]) == \
-                (DIST_STEPS + 2) * int(round(table2.step_uow()))
+                steps_run * int(round(table2.step_uow()))
             out.update(
                 arch=cfg.name, n_layers=cfg.n_layers, seq_len=TRAIN_SEQ,
                 batch=TRAIN_BATCH, steps=DIST_STEPS,
@@ -2493,6 +2582,46 @@ def phase_distributed(tmp) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     emit("distributed", **out)
     return out["launches"]
+
+
+def step_kernels(fn) -> dict:
+    """Normalised kernel name -> launches of one call of ``fn`` (a train
+    step: each call is one more step), from a complete profile where one of
+    `hlo_analysis.profile_call`'s attempts gives one; else from the last
+    profile's launches that kept their device event, with the ATen op of
+    each launch whose event torch.profiler lost (``lost``)."""
+    from repro_torch.core import hlo_analysis as H
+    try:
+        prof = H.profile_call(fn)
+        return {"kernels": H.kernel_histogram_of(prof),
+                "profiles_taken": prof.attempts, "lost": {}}
+    except H.LostDeviceEvents as err:
+        kernels, lost = {}, {}
+        for k in err.kernels:
+            name = H.kernel_name(k.name)
+            kernels[name] = kernels.get(name, 0) + 1
+        for op in err.lost_ops:
+            lost[op] = lost.get(op, 0) + 1
+        return {"kernels": kernels, "profiles_taken": H.PROFILE_ATTEMPTS,
+                "lost": lost}
+
+
+def kernel_delta(plain: dict, sharded: dict) -> dict:
+    """The sharded step's kernels against the plain step's.  ``launches``:
+    each step's launches, copies and fills as the host made them (those
+    whose device event the profile lost included); ``delta``: (name, plain,
+    sharded) where the kept launches differ by kernel name, most different
+    first; ``lost_device_events``: the ATen ops whose launches lost it."""
+    from repro_torch.core.hlo_analysis import histogram_delta
+    a, b = plain["kernels"], sharded["kernels"]
+    return {"plain_launches": sum(a.values()) + sum(plain["lost"].values()),
+            "sharded_launches": sum(b.values()) +
+            sum(sharded["lost"].values()),
+            "profiles_taken": [plain["profiles_taken"],
+                               sharded["profiles_taken"]],
+            "lost_device_events": {"plain": plain["lost"],
+                                   "sharded": sharded["lost"]},
+            "delta": [list(r) for r in histogram_delta(a, b)]}
 
 
 def moe_sharded_vs_plain(mesh) -> dict:
@@ -2704,6 +2833,56 @@ def _bound_check(name, cell, measured_ms) -> dict:
             "bound_over_measured": bound_ms / measured_ms}
 
 
+# The gap allowed between the allocator's requested peak over a step and
+# the dry-run's predicted peak (`mem_argument + mem_temp`), less the
+# arguments that the port keeps on the host (a train state's key): none.
+# On the card (torch 2.11.0+cu128, NVIDIA H100 80GB HBM3, 700.00 W) the
+# requested bytes rose over the train step and over a chunked decode step by
+# the predicted temporaries to the byte: no kernel of either step asks the
+# allocator for scratch of its own (cuBLAS's workspace is the handle's, made
+# at the first call before them).
+MEMORY_GAP_BYTES = 0
+
+
+def _peak_check(name, cell, fn, args) -> dict:
+    """The dry-run's memory analysis of ``cell`` against one call of ``fn``
+    on this card: the predicted peak, ``mem_argument_size_in_bytes +
+    mem_temp_size_in_bytes`` less the arguments that lie on the host,
+    against the bytes of the arguments' storages on the card (``args``; the
+    bytes checks hold them equal to the dry-run's) plus the rise of the
+    allocator's requested bytes (`requested_bytes.all.peak`: what was asked
+    for, not the blocks' sizes) over the call."""
+    from repro_torch.core.hlo_analysis import tree_storages
+    bufs = tree_storages(args, {}).values()
+    on_card = sum(b.nbytes() for b in bufs
+                  if isinstance(b, torch.UntypedStorage)
+                  and b.device.type == "cuda")
+    on_host = sum(b.nbytes for b in bufs if not isinstance(
+        b, torch.UntypedStorage))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    del out
+    predicted = cell["mem_argument_size_in_bytes"] - on_host + \
+        cell["mem_temp_size_in_bytes"]
+    measured = on_card + rise
+    assert on_card == cell["mem_argument_size_in_bytes"] - on_host, \
+        (name, on_card, on_host, cell)
+    assert abs(measured - predicted) <= MEMORY_GAP_BYTES, \
+        (name, predicted, measured, cell)
+    return {"predicted_peak": predicted, "measured_peak": measured,
+            "gap_bytes": measured - predicted, "limit": MEMORY_GAP_BYTES,
+            "arguments": cell["mem_argument_size_in_bytes"],
+            "arguments_on_host": on_host,
+            "temp": cell["mem_temp_size_in_bytes"], "requested_rise": rise,
+            "output": cell["mem_output_size_in_bytes"],
+            "alias": cell["mem_alias_size_in_bytes"]}
+
+
 def one_card_check(tmp) -> dict:
     """The dry-run held against this card at one rank.  Each cell is priced
     by `dryrun.run_cell` on a (data 1, model 1) mesh of the card (NCCL at
@@ -2715,7 +2894,10 @@ def one_card_check(tmp) -> dict:
     decode step and a prefill with the kernels (K2 and K1 once a layer,
     counted).  The bytes are held exactly against what the allocator's new
     blocks asked for; the increase of `memory_allocated` is those blocks'
-    sizes (`_bytes_check`)."""
+    sizes (`_bytes_check`).  The memory analysis: the train step and a
+    decode step on the impls the dry-run prices ("chunked"), so that the
+    program is the priced one op for op, each within `MEMORY_GAP_BYTES` of
+    the predicted peak (`_peak_check`)."""
     import torch.distributed as dist
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.core.blocks_lm import build_block_table
@@ -2765,6 +2947,9 @@ def one_card_check(tmp) -> dict:
     trace = train_step_trace(lambda: step(state, batch))
     out["train_step"] = _bound_check("train step", cells["train"],
                                      trace["device_busy_ms"])
+    out["train_step_memory"] = _peak_check(
+        "train step", cells["train"], lambda: step(state, batch),
+        (state, batch))
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2807,7 +2992,18 @@ def one_card_check(tmp) -> dict:
     for k, fn in (("decode", decode), ("prefill", prefill)):
         out[f"{k}_step"] = _bound_check(
             k, cells[k], train_step_trace(fn)["device_busy_ms"])
-    del params, caches
+    # the decode step as the dry-run prices it: the plain decode attention
+    chunked = build_model(dataclasses.replace(
+        cfg, attention_impl="chunked", ssm_impl="chunked"))
+    cache = caches["decode"]
+
+    def chunked_decode():
+        return chunked.decode_step(params, tok, cache)
+    chunked_decode()                                # first-call set-up
+    out["decode_step_memory"] = _peak_check(
+        "decode step", cells["decode"], chunked_decode,
+        (params, {"token": tok}, cache))
+    del params, caches, cache
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2869,24 +3065,36 @@ def phase_dryrun(tmp) -> dict:
             f"{TRAIN_ARCH}/one_card": one["launches"]}
 
 
-PATHS = (("qwen3-1.7b", 256), ("qwen3-1.7b/int8", 256),
-         ("qwen3-1.7b/int4", 256), ("mamba2-780m", 512),
-         ("zamba2-1.2b", 512), ("olmoe-1b-7b", 256), ("whisper-tiny", 64),
-         ("internvl2-76b", 512))
+# (path, prefill length, max_seq): the serving paths in the order they run.
+# gemma3-4b's prompts of 1536 tokens and a max_seq of 2048 put every prefill
+# and every decode step past its local layers' window of 1024 tokens.
+PATHS = (("qwen3-1.7b", 256, 1024), ("qwen3-1.7b/int8", 256, 1024),
+         ("qwen3-1.7b/int4", 256, 1024), ("mamba2-780m", 512, 1024),
+         ("zamba2-1.2b", 512, 1024), ("olmoe-1b-7b", 256, 1024),
+         ("whisper-tiny", 64, 1024), ("internvl2-76b", 512, 1024),
+         ("gemma3-4b", 1536, 2048), ("qwen2.5-14b", 256, 1024),
+         ("llama4-scout-17b-a16e", 256, 1024),
+         ("mistral-large-123b", 256, 1024))
 VARIANTS = {"int8": dict(weight_quant="int8", cache_quant="int8"),
             "int4": dict(weight_quant="int4")}
 # the variants whose weights are quantized from their base path's
 # (`quantize_params`); int4 has no quantizer, in the reference either
 QUANTIZED_FROM_BASE = ("int8",)
-# Depth cuts (layers served): internvl2-76b's 80 layers are 141 GB of bf16
-# weights, more than the card holds; 8 layers at its published widths are
-# 9.0 B parameters.
-SERVE_DEPTH = {"internvl2-76b": 8}
+# Depth cuts (layers served), for paths whose full depth does not fit on the
+# card in bf16: internvl2-76b's 80 layers are 141 GB of weights (8 layers at
+# its published widths: 9.0 B parameters), llama4-scout-17b-a16e's 48 layers
+# 216 GB (107.8 B parameters; 4 layers: 10.9 B) and mistral-large-123b's 88
+# layers 245 GB (4 layers: 6.3 B).
+SERVE_DEPTH = {"internvl2-76b": 8, "llama4-scout-17b-a16e": 4,
+               "mistral-large-123b": 4}
 # Where a path's random weights are drawn (the generator's device; seed 0
 # either way).  olmoe-1b-7b's 6.92 B values take 50.5 to 67.1 s on the CPU
 # generator (three runs on one H100's host), more than the rest of its
-# path, so they are drawn on the card, as internvl2-76b's 9.0 B are.
-SERVE_INIT_DEVICE = {"olmoe-1b-7b": "cuda", "internvl2-76b": "cuda"}
+# path, so they are drawn on the card, as are the other paths' of more than
+# 3 B values.
+SERVE_INIT_DEVICE = {name: "cuda" for name in (
+    "olmoe-1b-7b", "internvl2-76b", "gemma3-4b", "qwen2.5-14b",
+    "llama4-scout-17b-a16e", "mistral-large-123b")}
 
 
 def path_config(path: str):
@@ -2908,8 +3116,12 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,profile,accuracy,"
                             "train,pipeline,distributed,dryrun")
-    ap.add_argument("--paths", default=",".join(a for a, _ in PATHS),
-                    help="serving paths to drive (a subset while developing)")
+    ap.add_argument("--paths", default=",".join(p[0] for p in PATHS),
+                    help="serving paths to drive, of: " + ", ".join(
+                        p[0] + (f" ({SERVE_DEPTH[p[0]]} layers)"
+                                if p[0] in SERVE_DEPTH else "")
+                        for p in PATHS)
+                    + " (a subset while developing)")
     ap.add_argument("--ptxas", metavar="FILE", default="",
                     help="build with -Xptxas -v and write the compiler's "
                          "output (registers, spills) to FILE")
@@ -2925,16 +3137,17 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     chosen = args.paths.split(",")
-    paths = [(a, path_config(a), pl) for a, pl in PATHS if a in chosen]
-    batch, max_seq, n_requests = 8, 1024, 16
+    paths = [(a, path_config(a), pl, ms) for a, pl, ms in PATHS
+             if a in chosen]
+    batch, n_requests = 8, 16
 
     dev = phase_device()
     if "build" in phases:
         phase_build(args.ptxas)
-    checks = phase_kernels(paths, batch, max_seq) \
+    checks = phase_kernels(paths, batch) \
         if "kernels" in phases else None
     if "plans" in phases:
-        phase_plans(paths, batch, max_seq)
+        phase_plans(paths, batch)
     per_path = {}
     if "serve" not in phases:
         if "accuracy" in phases:
@@ -2953,7 +3166,7 @@ def main() -> int:
                 phase_dryrun(tmp)
         return 0
     carry = {}      # a quantized path's inputs, from its base path's run
-    for path, cfg, prefill_len in paths:
+    for path, cfg, prefill_len, max_seq in paths:
         eng, launches, params, logits = phase_serve(
             path, cfg, batch, max_seq, prefill_len, n_requests,
             given=carry.pop(path, None))

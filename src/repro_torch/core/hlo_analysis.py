@@ -7,7 +7,10 @@
 #     program that DTensor dispatches on each rank's local tensors
 #     (`ProgramRecorder`, run under `FakeTensorMode` on a fake process group
 #     by `launch/dryrun.py`) where the reference takes HLO text, with the
-#     same output schema;
+#     same output schema; the program's text is `program_text`, and its
+#     memory (the reference's `memory_analysis`) is `LiveBytes`, which
+#     follows each storage the program creates from its creating call to
+#     the release of its last reference;
 #   - the model-accuracy study of the paper's §V-B: the portable IR's
 #     histogram is `ir_histogram` (the ATen graph on meta tensors, the
 #     reference's `jaxpr_histogram`), the compiled side's is
@@ -26,13 +29,17 @@ the same rules as a traced block.
 from __future__ import annotations
 
 import collections
+import threading
+import weakref
 from typing import Any, Callable, Dict, Iterable, List, Tuple
+
+import numpy as np
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.core.unit_of_work import op_name
+from repro_torch.core.unit_of_work import TensorMeta, op_name
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -61,18 +68,104 @@ class _Arg:
         self.meta = {"val": t}
 
 
+def _metas(x):
+    """``x`` with every tensor in it (in lists and tuples) a `TensorMeta`."""
+    if isinstance(x, torch.Tensor):
+        return TensorMeta(x)
+    if isinstance(x, (list, tuple)):
+        return (list if isinstance(x, list) else tuple)(_metas(v) for v in x)
+    return x
+
+
 class RecordedOp:
     """One ATen call of the per-rank program: ``target`` the op overload,
     ``args`` its positional arguments (tensors wrapped so that their
-    ``meta["val"]`` holds them), ``meta["val"]`` its result."""
+    ``meta["val"]`` holds them), ``meta["val"]`` its result; every tensor
+    kept as its `TensorMeta`, which the costs read as they read a tensor,
+    so that a recording keeps no tensor alive."""
     op = "call_function"
     __slots__ = ("target", "args", "meta")
 
     def __init__(self, target, args, out):
         self.target = target
-        self.args = tuple(_Arg(a) if isinstance(a, torch.Tensor) else a
-                          for a in args)
-        self.meta = {"val": out}
+        self.args = tuple(_Arg(a) if isinstance(a, TensorMeta) else a
+                          for a in _metas(args))
+        self.meta = {"val": _metas(out)}
+
+
+def tree_storages(tree, out: Dict[int, Any]) -> Dict[int, Any]:
+    """The distinct buffers of the tensors in ``tree`` (dicts, lists,
+    tuples, NamedTuples; a DTensor's local tensor; a numpy array of a train
+    state's key), into ``out``: key -> the storage (or array)."""
+    if isinstance(tree, DTensor):
+        tree = tree._local_tensor
+    if isinstance(tree, torch.Tensor):
+        s = tree.untyped_storage()
+        out[s._cdata] = s
+    elif isinstance(tree, np.ndarray):
+        out[id(tree)] = tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            tree_storages(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            tree_storages(v, out)
+    return out
+
+
+class LiveBytes:
+    """The memory of a recorded program, under the names of the reference's
+    ``compiled.memory_analysis()``.  The arguments' buffers (`arguments`)
+    are live throughout.  Every storage that a call of the program creates
+    counts from that call to the release of its last reference (a
+    `weakref.finalize` on the storage, whose Python object torch keeps for
+    as long as the storage lives); a view's or an in-place call's output
+    shares a storage already counted and adds nothing.  ``peak`` is the most
+    bytes so created that were live at once, after any call."""
+
+    def __init__(self):
+        self.arguments: Dict[int, int] = {}
+        self.live = 0
+        self.peak = 0
+        self._created: Dict[int, int] = {}
+        self._lock = threading.RLock()    # a release can come from autograd's thread
+
+    def add_arguments(self, tree) -> None:
+        for key, buf in tree_storages(tree, {}).items():
+            self.arguments[key] = int(buf.nbytes if isinstance(
+                buf, np.ndarray) else buf.nbytes())
+
+    def created(self, out) -> None:
+        """Count the storages of a call's outputs that are new."""
+        with self._lock:
+            for key, s in tree_storages(out, {}).items():
+                if key in self._created or key in self.arguments:
+                    continue
+                n = s.nbytes()
+                self._created[key] = n
+                self.live += n
+                weakref.finalize(s, self._released, key).atexit = False
+            self.peak = max(self.peak, self.live)
+
+    def _released(self, key: int) -> None:
+        with self._lock:
+            self.live -= self._created.pop(key, 0)
+
+    def summary(self, out) -> Dict[str, int]:
+        """The reference's ``mem_*`` fields for a program that returned
+        ``out``: arguments; outputs, less the bytes that alias an argument
+        (a cache written in place, a train state updated in place), which
+        are ``alias``; ``temp`` is the peak of live bytes less the arguments
+        (the outputs are live at the end, so inside it)."""
+        outs = tree_storages(out, {})
+        alias = sum(self.arguments[k] for k in outs if k in self.arguments)
+        output = sum(b.nbytes() for k, b in outs.items()
+                     if k not in self.arguments
+                     and isinstance(b, torch.UntypedStorage))
+        return {"mem_argument_size_in_bytes": sum(self.arguments.values()),
+                "mem_output_size_in_bytes": int(output),
+                "mem_temp_size_in_bytes": int(self.peak),
+                "mem_alias_size_in_bytes": int(alias)}
 
 
 class ProgramRecorder(TorchDispatchMode):
@@ -80,20 +173,35 @@ class ProgramRecorder(TorchDispatchMode):
     is active.  A call on DTensors is handed back to DTensor (a mode runs
     before tensor subclasses), which then dispatches the per-rank ops,
     collectives included, through this mode.  ``ops`` is the program in
-    execution order."""
+    execution order.  ``memory`` (a `LiveBytes`) follows the storages that
+    the program's calls create; the recording keeps no tensor alive.
+
+    A factory function called from Python (``torch.empty``, ...) detaches
+    a result that something besides its caller holds as it returns it, and
+    a recording that kept every tensor held each one; so the recorder holds
+    the last call's outputs until the next call begins.  The program then
+    has that ``detach`` as before (the same calls,
+    `tests/test_torch_dryrun_memory.py`), and the outputs are let go
+    before the next call allocates."""
 
     def __init__(self):
         super().__init__()
         self.ops: List[RecordedOp] = []
+        self.memory = LiveBytes()
+        self._held = None
         self._paused = 0
         self._patched = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._held = None
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if not self._paused and getattr(func, "namespace", "") in RECORDED:
-            self.ops.append(RecordedOp(func, args, out))
+        if not self._paused:
+            if getattr(func, "namespace", "") in RECORDED:
+                self.ops.append(RecordedOp(func, args, out))
+            self.memory.created(out)
+            self._held = out
         return out
 
     # DTensor derives each op's output shape by running the op on fake
@@ -117,6 +225,7 @@ class ProgramRecorder(TorchDispatchMode):
         return super().__enter__()
 
     def __exit__(self, *exc):
+        self._held = None
         out = super().__exit__(*exc)
         cls, inner = self._patched
         cls._propagate_tensor_meta_non_cached = inner
@@ -124,11 +233,18 @@ class ProgramRecorder(TorchDispatchMode):
 
 
 def _tensor_bytes(t: Any) -> int:
-    if isinstance(t, torch.Tensor):
+    if isinstance(t, TensorMeta):
         return t.numel() * t.element_size()
     if isinstance(t, (list, tuple)):
         return sum(_tensor_bytes(x) for x in t)
     return 0
+
+
+def program_text(ops: Iterable[RecordedOp]) -> str:
+    """The recorded program as text, one line per call, each the name that
+    `op_histogram` counts it under: the counterpart of the reference's HLO
+    text, whose length is its ``hlo_bytes``."""
+    return "".join(op_name(op) + "\n" for op in ops)
 
 
 def op_histogram(ops: Iterable[RecordedOp]) -> Dict[str, int]:
@@ -244,7 +360,13 @@ _LAUNCH_APIS = ("LaunchKernel", "Memcpy", "Memset")
 
 class LostDeviceEvents(RuntimeError):
     """A profile holds a launch, copy or fill of the call with no device
-    event: a histogram of it would be wrong, not approximate."""
+    event: a histogram of it would be wrong, not approximate.  ``kernels``
+    holds the call's device events that the profile kept, ``lost_ops`` the
+    op that made each launch whose event it lost (`_launching_op`)."""
+
+    def __init__(self, msg: str, kernels=(), lost_ops=()):
+        super().__init__(msg)
+        self.kernels, self.lost_ops = list(kernels), list(lost_ops)
 
 
 def _profile_once(fn: Callable, args: tuple, cuda: bool):
@@ -314,14 +436,24 @@ def device_kernels(prof) -> list:
     ids = {e.id for e in runtime}
     kernels = [e for e in work if e.id in ids]
     done = {e.id for e in kernels}
-    lost = [e.name for e in runtime
+    lost = [e for e in runtime
             if any(a in e.name for a in _LAUNCH_APIS) and e.id not in done]
     if lost:
         raise LostDeviceEvents(
             f"the profile lost the device events of {len(lost)} of the "
             f"call's {len(kernels) + len(lost)} launches, copies and fills "
-            f"({sorted(set(lost))}); its kernel histogram would be wrong")
+            f"({sorted({e.name for e in lost})}); its kernel histogram "
+            "would be wrong", kernels, [_launching_op(e) for e in lost])
     return kernels
+
+
+def _launching_op(e) -> str:
+    """The ATen op whose call made the CPU-side API call ``e`` (the
+    innermost one around it), or the API call's own name."""
+    p = getattr(e, "cpu_parent", None)
+    while p is not None and not _aten(p):
+        p = p.cpu_parent
+    return e.name if p is None else p.name
 
 
 def kernel_histogram_of(prof) -> Dict[str, int]:

@@ -56,9 +56,25 @@ def is_matmul(node) -> bool:
     return node.op == "call_function" and op_name(node) in _MATMUL
 
 
+class TensorMeta:
+    """A tensor's shape and dtype, all that the cost rules read of it: what
+    a recorded program keeps of a tensor, so as not to keep the tensor
+    alive (`core.hlo_analysis.ProgramRecorder`)."""
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.dtype.itemsize
+
+
 def _vals(x):
     """Tensor-like metadata values inside a node's ``meta['val']``."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, TensorMeta)):
         return [x]
     if isinstance(x, (list, tuple)):
         return [t for v in x for t in _vals(v)]

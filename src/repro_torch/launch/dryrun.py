@@ -27,9 +27,15 @@
 # (`layers.stored_shape`): the reference's 0.5 B a value.  A train cell with
 # int8 or int4 weights errs in both packages: a train step differentiates
 # every parameter, and an integer payload has no gradient.
-# Fields of the reference's dict with no counterpart, left out: `compile_s`,
-# the `mem_*` of `memory_analysis`, `hlo_bytes`, and the `cost_analysis`
-# entries other than "flops" and "bytes accessed"; of its CLI, `--dump-hlo`.
+# The `mem_*` of the reference's `memory_analysis` come from the per-rank
+# program too (`hlo_analysis.LiveBytes`: each storage it creates, from the
+# creating call to the release of its last reference; a train cell's parts
+# run in sequence under one tracker), and `hlo_bytes` is the length of its
+# text (`hlo_analysis.program_text`, each part once).  `--dump-hlo` is
+# accepted and, as in the reference, read by nothing.
+# Fields of the reference's dict with no counterpart, because the port
+# compiles nothing: `compile_s` and `mem_generated_code_size_in_bytes`; and
+# the `cost_analysis` entries other than "flops" and "bytes accessed".
 # Added: the impls, `microbatch_traced`, `trace_s` and `program_s` (the
 # global trace's and the per-rank program's seconds) and `kernel_launches`.
 """Dry-run: price every (arch × shape × mesh) cell's step on fake tensors
@@ -333,17 +339,18 @@ def layout_cell(arch: str, shape: Union[str, Any], mesh_kind: str, *,
     return lay
 
 
-def _train_parts(step, state, batch, microbatch: int, run) -> None:
+def _train_parts(step, state, batch, microbatch: int, run):
     """The train step part by part: ``run(fn, args, reps)`` runs each part
     and returns its outputs (the next part's arguments); ``accumulate``
-    stands for ``microbatch`` slices (``reps``)."""
+    stands for ``microbatch`` slices (``reps``).  Returns the step's
+    outputs (``finish``'s)."""
     if microbatch == 1:
         loss, aux, grads = run(step.grads_of, (state.params, batch, None), 1)
     else:
         slices, acc = run(step.start, (state, batch), 1)
         grads, loss, aux = run(step.accumulate,
                                (state, slices[0], None, acc), microbatch)
-    run(step.finish, (state, list(grads), loss, aux), 1)
+    return run(step.finish, (state, list(grads), loss, aux), 1)
 
 
 def recorded_cost(fn, *args):
@@ -387,8 +394,11 @@ def _global_cost(lay: Layout, instrument: bool):
 
 
 def _record_program(lay: Layout, mesh, device, instrument: bool):
-    """[(recorded ops, reps)] of the per-rank program of the cell's step,
-    run as rank ``mesh``'s own on fake tensors under its plan."""
+    """([(recorded ops, reps)], its ``mem_*`` fields) of the per-rank
+    program of the cell's step, run as rank ``mesh``'s own on fake tensors
+    under its plan.  The arguments are the parameters, the cache or the
+    train state, and the batch; a train cell's parts run in sequence under
+    one `LiveBytes`, so that what one part leaves to the next counts."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.core.blocks_lm import build_block_table
@@ -426,18 +436,20 @@ def _record_program(lay: Layout, mesh, device, instrument: bool):
                     out = fn(*args)
                 parts.append((rec.ops[n:], reps))
                 return out
+            rec.memory.add_arguments((state, batch))
             with sharded_region(params):
-                _train_parts(step, state, batch, mb, run)
-            return parts
+                out = _train_parts(step, state, batch, mb, run)
+            return parts, rec.memory.summary(out)
         specs = KC.cache_specs(lay.cache, plan)
         cache = {k: _fake_dtensor(v, (mesh, placements(mesh, specs[k])),
                                   device) for k, v in lay.cache.items()}
+        rec.memory.add_arguments((params, batch, cache))
         with rec, sharded_region(params):
             if shape.kind == "prefill":
-                model.prefill(params, batch, cache)
+                out = model.prefill(params, batch, cache)
             else:
-                model.decode_step(params, batch["token"], cache)
-    return [(rec.ops, 1)]
+                out = model.decode_step(params, batch["token"], cache)
+        return [(rec.ops, 1)], rec.memory.summary(out)
 
 
 def run_cell(arch: str, shape: Union[str, Any], mesh_kind: str,
@@ -474,7 +486,7 @@ def run_cell(arch: str, shape: Union[str, Any], mesh_kind: str,
     if mesh is None:
         mesh = make_fake_mesh(multi_pod=mesh_kind == "multi", device=dev)
     t0 = time.time()
-    parts = _record_program(lay, mesh, dev, instrument)
+    parts, memory = _record_program(lay, mesh, dev, instrument)
     result["program_s"] = time.time() - t0
     result["lower_s"] = time.time() - t_start
 
@@ -495,6 +507,9 @@ def run_cell(arch: str, shape: Union[str, Any], mesh_kind: str,
     result["collective_bytes"] = sum(v["bytes"] for v in coll.values())
     result["op_histogram_top"] = dict(
         sorted(hist.items(), key=lambda kv: -kv[1])[:20])
+    result.update(memory)
+    result["hlo_bytes"] = sum(len(H.program_text(ops).encode())
+                              for ops, _ in parts)
     result["kernel_launches"] = kernel_launches()
     result["status"] = "ok"
     result["total_s"] = time.time() - t_start
@@ -541,6 +556,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cache-quant", default="none")
     ap.add_argument("--capacity-factor", type=float)
     ap.add_argument("--microbatch", type=int)
+    ap.add_argument("--dump-hlo", action="store_true",
+                    help="accepted as the reference's; read by nothing")
     ap.add_argument("--tag", default="")
     ap.add_argument("--device", default=None,
                     help="cpu for fake CPU tensors (default: the card)")

@@ -265,6 +265,20 @@ def test_a_profile_that_lost_events_is_taken_again(monkeypatch, lossy):
     assert sum(H.kernel_histogram_of(prof).values()) == 3
 
 
+def test_a_lossy_profile_keeps_its_kernels_and_names_its_lost_launches():
+    """The error carries the call's kernels that kept their device events
+    and, for each lost launch, the ATen op that made it (or the API call)."""
+    prof = _lead_in_and_call(lose={4, 5})
+    events = {e.id: e for e in prof.events() if e.device_type.name == "CPU"}
+    events[4].cpu_parent = events[101]
+    events[101].cpu_parent = events[100]
+    with pytest.raises(H.LostDeviceEvents) as err:
+        H.kernel_histogram_of(prof)
+    assert [H.kernel_name(k.name) for k in err.value.kernels] == \
+        ["Memcpy DtoD (Device -> Device)"]
+    assert err.value.lost_ops == ["aten::arange", "cuLaunchKernelEx"]
+
+
 def test_profiles_that_all_lost_events_raise(monkeypatch):
     monkeypatch.setattr(H, "_profile_once", lambda fn, args, cuda:
                         _lead_in_and_call(lose={4}))

@@ -113,6 +113,25 @@ def test_attention_plan_at_the_serving_paths():
     assert (f32.bq, f32.bk, f32.kv_warps) == (64, 64, 1)
 
 
+def test_attention_plan_at_the_four_later_serving_paths():
+    """gemma3-4b's prefill (S 1536, head_dim 256: the kv tile halved) and
+    the 256-token prefills of qwen2.5-14b, llama4-scout-17b-a16e (40 q
+    heads) and mistral-large-123b (96).  Under gemma3-4b's window of 1024
+    the last q tile walks the kv tiles from the window's lower edge only."""
+    gemma3 = attention_plan(1, 1536, 8, 256, torch.bfloat16)
+    assert (gemma3.bq, gemma3.bk, gemma3.kv_warps, gemma3.grid) == \
+        (64, 16, 2, (24, 8, 1))
+    q0, q1 = gemma3.q_tiles(1536)[-1]
+    windowed = gemma3.key_tiles(1536, q0, True, 1024)
+    assert windowed[0][0] == q0 - 1024 + 1 - (q0 - 1024 + 1) % 16
+    assert len(windowed) == 68 and len(gemma3.key_tiles(1536, q0, True,
+                                                        -1)) == 96
+    for h in (40, 96):
+        plan = attention_plan(1, 256, h, 128, torch.bfloat16)
+        assert plan.blocks >= plan.target_blocks
+    assert attention_plan(1, 256, 96, 128, torch.bfloat16).bq == 128
+
+
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_attention_plan_shared_memory_fits(hd, dtype):
@@ -170,6 +189,15 @@ def test_split_plan_at_the_serving_paths():
     assert split_plan(8, 16, 1024, 32) == (4, 256)      # olmoe-1b-7b decode
     assert head_blocks(16 // 16) == (1, 1)              # olmoe: MHA, group 1
     assert split_plan(8, 8, 8192, 32) == (8, 1024)      # the long shape
+
+
+def test_split_plan_at_the_four_later_serving_paths():
+    assert split_plan(8, 4, 2048, 32) == (16, 128)      # gemma3-4b decode
+    # qwen2.5-14b, llama4-scout-17b-a16e, mistral-large-123b: 8 kv heads
+    assert split_plan(8, 8, 1024, 32) == (8, 128)
+    assert head_blocks(8 // 4) == (1, 2)                # gemma3-4b: group 2
+    assert head_blocks(40 // 8) == (1, 5)               # qwen2.5, llama4
+    assert head_blocks(96 // 8) == (2, 6)               # mistral: two blocks
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)

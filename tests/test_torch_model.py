@@ -20,7 +20,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models.model_zoo import build_model
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ["qwen3-1.7b", "qwen2.5-14b", "gemma3-4b"]
+ARCHS = ["qwen3-1.7b", "qwen2.5-14b", "gemma3-4b", "mistral-large-123b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
