@@ -17,7 +17,7 @@
 #     `kernel_histogram` (the kernels one call runs on the card, from
 #     torch.profiler), and `histogram_delta` localises the difference;
 #   - marker location by label: `find_scope_labels` reads a recorded
-#     profile, whose `record_function` ranges (`models/layers.scope`) are the
+#     profile, whose user ranges (`models/layers.scope`, `obs.span`) are the
 #     reference's `named_scope` metadata in the HLO.
 """Program analysis: op histograms, collective traffic, marker labels.
 

@@ -1,5 +1,7 @@
-# Counterpart of src/repro/launch/obs.py: a verbatim copy over the port's `obs` with
-# the package renamed; nothing of it is left unported.
+# Counterpart of src/repro/launch/obs.py over the port's `obs`; nothing of
+# it is left unported.  Where the port departs: it takes several run
+# directories or trace files, so that a program's trace and a torch.profiler
+# export (both on the Unix clock, see `obs.trace`) merge onto one timeline.
 """Trace/metrics summarizer + merger for ``repro_torch.obs`` run directories.
 
 ``python -m repro_torch.launch.obs RUN_DIR`` finds every ``trace.jsonl`` /
@@ -9,13 +11,18 @@ per-span aggregate table (count, total/mean/max ms) and, when a
 ``--merge-out PATH`` all discovered events are merged into one
 Chrome-trace/Perfetto ``trace.json`` — the multi-process/multi-host story:
 each worker streams its own JSONL sink, the merger joins them on one
-timeline (tracks keyed by pid).
+timeline (tracks keyed by pid).  Several directories or files may be given:
+a ``torch.profiler`` export (``prof.export_chrome_trace(path)``) merges with
+the program's own trace, both on the Unix clock, so the program's spans lie
+over the kernels they launched.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.pipeline ... --trace /tmp/run
     PYTHONPATH=src python -m repro_torch.launch.obs /tmp/run
     PYTHONPATH=src python -m repro_torch.launch.obs /tmp/run \
         --merge-out /tmp/run/merged.json
+    PYTHONPATH=src python -m repro_torch.launch.obs /tmp/run/trace.jsonl \
+        /tmp/profile.json --merge-out /tmp/merged.json
 """
 from __future__ import annotations
 
@@ -88,16 +95,19 @@ def metrics_table(snapshots: Dict[str, Dict]) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="summarize/merge repro_torch.obs traces from a run directory")
-    ap.add_argument("run_dir", help="run directory (or a single trace file)")
+    ap.add_argument("run_dir", nargs="+",
+                    help="run directories or trace files (a torch.profiler "
+                         "export among them)")
     ap.add_argument("--merge-out", metavar="PATH",
                     help="write all events as one Chrome-trace JSON file")
     ap.add_argument("--json", action="store_true",
                     help="emit the summary as JSON instead of tables")
     args = ap.parse_args(argv)
 
-    files = find_trace_files(args.run_dir)
+    files = [f for root in args.run_dir for f in find_trace_files(root)]
     if not files and not args.merge_out:
-        print(f"no trace files under {args.run_dir}", file=sys.stderr)
+        print(f"no trace files under {' '.join(args.run_dir)}",
+              file=sys.stderr)
         return 1
     events = []
     for path in files:
@@ -112,7 +122,7 @@ def main(argv=None) -> int:
               f"-> {args.merge_out}")
 
     snapshots = {}
-    for mp in find_metrics_files(args.run_dir):
+    for mp in (m for root in args.run_dir for m in find_metrics_files(root)):
         with open(mp) as f:
             snapshots[mp] = json.load(f)
 

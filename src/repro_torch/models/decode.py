@@ -5,6 +5,9 @@
 # dry-run prices a prefill and a decode step so; the engine takes no plan,
 # as the JAX package's does not) a DTensor cache is written on each rank's
 # own rows, heads and sequence positions (`_write_index`, `_write_kv`).
+# A decode step's attention carries the block's label and its phases'
+# (`layers.scope`), as the prefill's does, where the reference's decode has
+# none; the prefill's copies of k/v into the cache are labelled too.
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
@@ -144,15 +147,16 @@ def lm_prefill(params, cfg: ArchConfig, dims: ModelDims, tokens,
     else:
         x, aux, (ks, vs) = decoder_stack(params, cfg, dims, x, positions,
                                          collect_kv=True, plus_one=plus_one)
-        for i in range(cfg.n_layers):              # in place, layer by layer
-            if quant:
-                for key, kv in (("k", ks[i]), ("v", vs[i])):
-                    q, scale = KC.quantize_kv(kv)
-                    cache[key][i, :, :s].copy_(q)
-                    cache[f"{key}_scale"][i, :, :s].copy_(scale)
-            else:
-                cache["k"][i, :, :s].copy_(ks[i])
-                cache["v"][i, :, :s].copy_(vs[i])
+        with L.scope("nugget_block_attn.cache_write"):
+            for i in range(cfg.n_layers):          # in place, layer by layer
+                if quant:
+                    for key, kv in (("k", ks[i]), ("v", vs[i])):
+                        q, scale = KC.quantize_kv(kv)
+                        cache[key][i, :, :s].copy_(q)
+                        cache[f"{key}_scale"][i, :, :s].copy_(scale)
+                else:
+                    cache["k"][i, :, :s].copy_(ks[i])
+                    cache["v"][i, :, :s].copy_(vs[i])
     cache["length"].fill_(s)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, plus_one=plus_one)
     logits = unembed(params, cfg, dims, x[:, -1:])
@@ -234,23 +238,30 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one,
     index = _write_index(lengths, cache["k"][0])
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
-        h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
         dt = x.dtype
-        q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
-                        rope_tables=rope)
-        if quant:                                    # dequantized outside K2
-            k_l, v_l, ks_l, vs_l = _write_kv_quant(
-                cache["k"][i], cache["v"][i], cache["k_scale"][i],
-                cache["v_scale"][i], k, v, lengths, index)
-            k_l = KC.dequantize_kv(k_l, ks_l, dt)
-            v_l = KC.dequantize_kv(v_l, vs_l, dt)
-        else:
-            k_l, v_l = _write_kv(cache["k"][i], cache["v"][i], k, v, lengths,
-                                 index)
-        ctx = A.attend_decode(q, k_l, v_l, attend_len, dims.layout,
-                              window=windows[i], cap=cfg.attn.softcap,
-                              impl=cfg.attention_impl)
-        attn_out = A.out_proj(p["attn"], dims.layout, ctx, dt)
+        with L.scope("nugget_block_attn"):
+            with L.scope("nugget_block_attn.qkv"):
+                h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps,
+                              plus_one=plus_one)
+                q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h,
+                                positions, dt, rope_tables=rope)
+            with L.scope("nugget_block_attn.cache_write"):
+                if quant:
+                    k_l, v_l, ks_l, vs_l = _write_kv_quant(
+                        cache["k"][i], cache["v"][i], cache["k_scale"][i],
+                        cache["v_scale"][i], k, v, lengths, index)
+                else:
+                    k_l, v_l = _write_kv(cache["k"][i], cache["v"][i], k, v,
+                                         lengths, index)
+            with L.scope("nugget_block_attn.attend"):
+                if quant:                            # dequantized outside K2
+                    k_l = KC.dequantize_kv(k_l, ks_l, dt)
+                    v_l = KC.dequantize_kv(v_l, vs_l, dt)
+                ctx = A.attend_decode(q, k_l, v_l, attend_len, dims.layout,
+                                      window=windows[i], cap=cfg.attn.softcap,
+                                      impl=cfg.attention_impl)
+            with L.scope("nugget_block_attn.out"):
+                attn_out = A.out_proj(p["attn"], dims.layout, ctx, dt)
         if cfg.parallel_block:
             h2 = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps, plus_one=plus_one)
             x = x + (attn_out + _ffn(p, cfg, h2, aux=aux))

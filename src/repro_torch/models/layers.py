@@ -3,7 +3,8 @@
 # no ``copy_``), so an int4 payload is stored two values a ``uint8``, packed
 # along the kernel's "embed" axis (`pack_int4`), and unpacked to the compute
 # dtype on use, as the reference's `get_kernel` casts its int4 leaves.
-# `scope` is the port's ``jax.named_scope``: a label that only a profile sees.
+# `scope` is the port's ``jax.named_scope``: a label that a profile and the
+# program's trace see (`obs.span`).
 """Parameter machinery + elementary layers (plain functions on tensors).
 
 Parameters are nested dicts of tensors with the key names and shapes of the
@@ -12,7 +13,6 @@ logical axis names are kept so that the two packages' specs read alike.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import (fsdp_gather, lookup_rows,
                                               sharded_product)
 
@@ -153,28 +154,16 @@ def map_specs(fn: Callable[[ParamSpec], Any], specs: Dict[str, Any]):
             for k, v in specs.items()}
 
 
-@contextlib.contextmanager
 def scope(name: str):
-    """The label of a block (the reference's ``jax.named_scope``): a
-    ``torch.profiler.record_function`` range while a profiler records and no
-    trace runs, so that `core.hlo_analysis.find_scope_labels` finds the
-    block's ops in the profile.  Otherwise it does nothing: no ATen op, no
-    launch, and no node in a ``make_fx`` graph (the unit of work counts every
-    node) or a fake-tensor program."""
-    if torch.autograd.profiler._is_profiler_enabled and not _tracing():
-        with torch.autograd.profiler.record_function(name):
-            yield
-    else:
-        yield
-
-
-def _tracing() -> bool:
-    """Whether a ``make_fx`` trace, a fake-tensor mode or a compile is
-    active, where a profiler range would become a node of the program."""
-    keys = torch._C._TorchDispatchModeKey
-    return (torch._C._get_dispatch_mode(keys.PROXY) is not None
-            or torch._C._get_dispatch_mode(keys.FAKE) is not None
-            or torch.compiler.is_compiling())
+    """The label of a block (the reference's ``jax.named_scope``): an
+    ``obs.span``, so a profiler's user range (as ``record_function`` opens)
+    while a profiler records and no trace runs, so that
+    `core.hlo_analysis.find_scope_labels` finds the block's ops in the
+    profile, and a span of the program's trace while the tracer is on.
+    Otherwise it does nothing: no ATen op, no launch, and no node in a
+    ``make_fx`` graph (the unit of work counts every node) or a fake-tensor
+    program."""
+    return obs.span(name)
 
 
 def init_tree(gen: torch.Generator, specs: Dict[str, Any], dtype,

@@ -25,6 +25,12 @@ Ties in the router's top-k go to the lower expert index, as
 and on the card returns equal values in index order.  With f32 random
 weights ties do not occur in practice.
 
+The layer's phases are labelled ``nugget_block_moe.route``, ``.dispatch``,
+``.experts`` and ``.combine`` (`layers.scope`), and each call adds its
+routed (token, expert) entries to the registry's ``moe.entries`` and the
+buffer rows its products run over to ``moe.slots`` (host integers from
+shapes; not under a ``make_fx`` trace or fake tensors).
+
 The scatter into the expert buffers is ``index_add_``.  A dropped entry adds
 ``token * 0`` to its expert's last slot, so the result does not depend on
 the order of the adds unless a token holds inf or NaN.
@@ -37,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed.sharding import (from_local_part, local_part,
                                               shard)
@@ -158,44 +165,54 @@ def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
     cap = capacity(s, m)
     dtype = x.dtype
 
-    top_e, top_g, aux = route(params["router"], x, m, rng)
-    # this rank's batch rows (all of them on one device)
-    x_l, e_l, g_l = (local_part(t, x) for t in (x, top_e, top_g))
-    bl = x_l.shape[0]
-    slot, keep = dispatch_indices(e_l, m.top_k, m.n_experts, cap)
+    with L.scope("nugget_block_moe.route"):
+        top_e, top_g, aux = route(params["router"], x, m, rng)
+    with L.scope("nugget_block_moe.dispatch"):
+        # this rank's batch rows (all of them on one device)
+        x_l, e_l, g_l = (local_part(t, x) for t in (x, top_e, top_g))
+        bl = x_l.shape[0]
+        slot, keep = dispatch_indices(e_l, m.top_k, m.n_experts, cap)
 
-    # scatter tokens into the expert buffers [B, E*cap, d]
-    tok = torch.repeat_interleave(x_l, m.top_k, dim=1)         # [B, S*k, d]
-    rows = torch.arange(bl, device=x.device)[:, None] * (m.n_experts * cap)
-    buf = torch.zeros((bl * m.n_experts * cap, d), dtype=dtype,
-                      device=x.device)
-    wmask = keep[..., None].to(dtype)
-    buf.index_add_(0, (rows + slot).reshape(-1),
-                   (tok * wmask).reshape(-1, d))
-    buf = from_local_part(buf.reshape(bl, m.n_experts, cap, d), x)
-    buf = shard(buf, "batch", "experts", None, None)
-    out_buf = expert_mlp(params, cfg, buf)
-    out_buf = shard(out_buf, "batch", "experts", None, None)
-    out_buf = local_part(out_buf, x).reshape(bl, m.n_experts * cap, d)
+        # scatter tokens into the expert buffers [B, E*cap, d]
+        tok = torch.repeat_interleave(x_l, m.top_k, dim=1)     # [B, S*k, d]
+        rows = torch.arange(bl, device=x.device)[:, None] * (m.n_experts * cap)
+        buf = torch.zeros((bl * m.n_experts * cap, d), dtype=dtype,
+                          device=x.device)
+        wmask = keep[..., None].to(dtype)
+        buf.index_add_(0, (rows + slot).reshape(-1),
+                       (tok * wmask).reshape(-1, d))
+        buf = from_local_part(buf.reshape(bl, m.n_experts, cap, d), x)
+        buf = shard(buf, "batch", "experts", None, None)
+    if not obs.tracing():
+        # the products' work, from shapes: the routed entries and the
+        # buffer rows they run over (this rank's rows)
+        reg = obs.metrics()
+        reg.count("moe.entries", bl * s * m.top_k)
+        reg.count("moe.slots", bl * m.n_experts * cap)
+    with L.scope("nugget_block_moe.experts"):
+        out_buf = expert_mlp(params, cfg, buf)
+        out_buf = shard(out_buf, "batch", "experts", None, None)
+        out_buf = local_part(out_buf, x).reshape(bl, m.n_experts * cap, d)
 
-    # gather back and combine with the gates
-    gathered = torch.gather(out_buf, 1, slot[..., None].expand(bl, -1, d))
-    gathered = gathered * (keep[..., None].to(dtype) *
-                           g_l.reshape(bl, -1)[..., None].to(dtype))
-    y = from_local_part(torch.sum(gathered.reshape(bl, s, m.top_k, d), dim=2),
-                        x)
+    with L.scope("nugget_block_moe.combine"):
+        # gather back and combine with the gates
+        gathered = torch.gather(out_buf, 1, slot[..., None].expand(bl, -1, d))
+        gathered = gathered * (keep[..., None].to(dtype) *
+                               g_l.reshape(bl, -1)[..., None].to(dtype))
+        y = from_local_part(
+            torch.sum(gathered.reshape(bl, s, m.top_k, d), dim=2), x)
 
-    if m.n_shared_experts:
-        y = y + L.mlp(params["shared"], x, cfg.act, dtype)
+        if m.n_shared_experts:
+            y = y + L.mlp(params["shared"], x, cfg.act, dtype)
 
-    # ---- dynamic Nugget-signature entries -------------------------------
-    flat = e_l.reshape(-1)
-    counts = torch.zeros((m.n_experts,), dtype=torch.int32,
-                         device=x.device).index_add_(
-        0, flat, torch.ones_like(flat, dtype=torch.int32))      # [E]
-    aux["expert_tokens"] = from_local_part(counts, x, partial=True)
-    aux["dropped_tokens"] = from_local_part(
-        torch.sum(~keep).to(torch.int32), x, partial=True)
+        # ---- dynamic Nugget-signature entries ---------------------------
+        flat = e_l.reshape(-1)
+        counts = torch.zeros((m.n_experts,), dtype=torch.int32,
+                             device=x.device).index_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.int32))  # [E]
+        aux["expert_tokens"] = from_local_part(counts, x, partial=True)
+        aux["dropped_tokens"] = from_local_part(
+            torch.sum(~keep).to(torch.int32), x, partial=True)
     return shard(y, "batch", "seq", "act_embed"), aux
 
 

@@ -1,9 +1,10 @@
 # Counterpart of src/repro/models/transformer.py: the dense, MoE, SSM,
 # hybrid and VLM families (the enc-dec family is models/encdec.py); nothing
 # of it is left unported.  The reference's ``jax.named_scope`` block labels
-# are `layers.scope` ranges, which only a profile sees.  The `shard(...)`
-# constraints are identities unless a plan is active and the tensor is a
-# DTensor (distributed/sharding.py).  The router's `rng` is a
+# are `layers.scope` ranges (`obs.span`s), which a profile and the program's
+# trace see; the attention block's phases have labels of their own.  The
+# `shard(...)` constraints are identities unless a plan is active and the
+# tensor is a DTensor (distributed/sharding.py).  The router's `rng` is a
 # `torch.Generator` (see models/moe.py).
 """Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families.
 
@@ -273,16 +274,23 @@ def rope_tables(cfg: ArchConfig, positions):
 
 def _attn_out(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
               *, plus_one: bool, rope=None):
-    """norm -> qkv -> attention -> output projection; returns (y, (k, v))."""
-    h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
+    """norm -> qkv -> attention -> output projection; returns (y, (k, v)).
+    Each phase is labelled (``nugget_block_attn.qkv``, ``.attend``,
+    ``.out``)."""
     dt = x.dtype
-    q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
-                    rope_tables=rope)
-    ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
-                   dims.layout, causal=True, window=window,
-                   cap=cfg.attn.softcap, q_chunk=cfg.attn_chunk,
-                   kv_chunk=cfg.attn_chunk, causal_skip=cfg.attn_causal_skip)
-    return A.out_proj(p["attn"], dims.layout, ctx, dt), (k, v)
+    with L.scope("nugget_block_attn.qkv"):
+        h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
+        q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,
+                        rope_tables=rope)
+    with L.scope("nugget_block_attn.attend"):
+        ctx = A.attend(cfg.attention_impl, q, k, v, positions, positions,
+                       dims.layout, causal=True, window=window,
+                       cap=cfg.attn.softcap, q_chunk=cfg.attn_chunk,
+                       kv_chunk=cfg.attn_chunk,
+                       causal_skip=cfg.attn_causal_skip)
+    with L.scope("nugget_block_attn.out"):
+        y = A.out_proj(p["attn"], dims.layout, ctx, dt)
+    return y, (k, v)
 
 
 def _attn_block(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,

@@ -1,5 +1,12 @@
-# Counterpart of src/repro/obs/trace.py: a verbatim copy (numpy / stdlib only) with the
-# package renamed in its imports; nothing of it is left unported.
+# Counterpart of src/repro/obs/trace.py, where the port departs from it in
+# two ways.  Spans start on the clock that torch.profiler stamps (Unix
+# nanoseconds, as `time.time_ns()` reads them; the Chrome export's `ts` is
+# Unix microseconds), where the reference counts `time.perf_counter()` from
+# the tracer's own epoch: a program trace and a profile then lie on one
+# timeline.  Durations stay on the monotonic clock (`perf_counter_ns`).
+# And while a profiler records, outside a `make_fx` trace, fake tensors or a
+# compile, a span also opens a `record_function` range of its name
+# (`profiling`).
 """Tracer: nestable spans over a thread-safe in-process buffer.
 
 The tracer is the timing half of ``repro_torch.obs`` (the metrics half lives in
@@ -12,6 +19,17 @@ nugget lifecycle — ``pipeline.run`` > ``stage.profile`` >
 - **Chrome trace** (``trace.json``): the ``traceEvents`` format that
   ``chrome://tracing`` and https://ui.perfetto.dev load directly, so a full
   pipeline run can be inspected in a real trace viewer.
+
+Timestamps are Unix time (``time.time_ns()``), the clock of
+``torch.profiler``'s events, and durations are monotonic
+(``time.perf_counter_ns()``, which no clock step moves): ``ts`` in the
+exports is Unix microseconds, so a trace of the program and a profiler's
+``export_chrome_trace`` merge onto one timeline (``python -m
+repro_torch.launch.obs``, which adds a profiler export's
+``baseTimeNanoseconds`` back to its ``ts``).  While a profiler records, a
+span also opens a ``record_function`` range of its name (`ProfilerRange`), so the
+profile shows the program's phases over the kernels they launch (on the
+card, a device-side span of each range encloses its kernels).
 
 Disabled (the default) the tracer is a handful of attribute reads per
 ``span()`` call — the hot-loop budget is enforced by
@@ -27,10 +45,61 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# a user range of the profiler (``RecordScope.USER_SCOPE``), opened and closed
+_range_enter = torch._C._autograd._record_function_with_args_enter
+_range_exit = torch._C._autograd._record_function_with_args_exit
+
 # Chrome-trace phases used here: X = complete span, i = instant event,
 # M = metadata (process/thread names).
 _PH_SPAN = "X"
 _PH_INSTANT = "i"
+
+
+def tracing() -> bool:
+    """Whether a ``make_fx`` trace, a fake-tensor mode or a compile is
+    active, where a profiler range would become a node of the program."""
+    keys = torch._C._TorchDispatchModeKey
+    return (torch._C._get_dispatch_mode(keys.PROXY) is not None
+            or torch._C._get_dispatch_mode(keys.FAKE) is not None
+            or torch.compiler.is_compiling())
+
+
+def profiling() -> bool:
+    """Whether a span should open a ``record_function`` range: a profiler
+    records and no trace runs (there the range would be an ATen op, a node
+    of the graph whose nodes the unit of work counts)."""
+    return _autograd_profiler._is_profiler_enabled and not tracing()
+
+
+class ProfilerRange:
+    """A span that only a profile sees: a user range of its name, as
+    ``record_function`` opens one, with the span API's ``set`` and ``event``
+    as no-ops (what ``span()`` returns while a profiler records and the
+    tracer is off).  It opens the range directly, not through the two ATen
+    ops (enter, exit) of ``record_function``, which the profiler records as
+    events of their own at several times the range's cost."""
+
+    __slots__ = ("name", "_handle")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._handle = None
+
+    def __enter__(self) -> "ProfilerRange":
+        self._handle = _range_enter(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        _range_exit(self._handle)
+
+    def set(self, **attrs: Any) -> "ProfilerRange":
+        return self
+
+    def event(self, name: str, **attrs: Any) -> None:
+        return None
 
 
 class Span:
@@ -38,25 +107,37 @@ class Span:
     ``event()`` records instants inside it, ``set()`` attaches attributes
     that land in the Chrome-trace ``args`` dict."""
 
-    __slots__ = ("tracer", "name", "attrs", "t0", "_tid", "_depth")
+    __slots__ = ("tracer", "name", "attrs", "t0", "_p0", "_tid", "_depth",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
-        self.t0 = 0.0
+        self.t0 = 0
+        self._p0 = 0
         self._tid = 0
         self._depth = 0
+        self._range = None
 
     # -- context manager ----------------------------------------------
     def __enter__(self) -> "Span":
-        self.t0 = time.perf_counter()
+        # the start is stamped on the Unix clock (for the merge) and the
+        # duration taken on the monotonic one, which no clock step moves;
+        # both are read outside the profiler range, the monotonic one first,
+        # so the range nests inside the span on a merged timeline
+        self._p0 = time.perf_counter_ns()
+        self.t0 = time.time_ns()
         self._tid = threading.get_ident()
         self._depth = self.tracer._push()
+        if profiling():
+            self._range = ProfilerRange(self.name).__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        p1 = time.perf_counter_ns()
         self.tracer._pop()
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
@@ -65,7 +146,7 @@ class Span:
             self.attrs.setdefault("worker", worker)
         self.tracer._emit({
             "ph": _PH_SPAN, "name": self.name, "cat": "span",
-            "ts": self.tracer._us(self.t0), "dur": int((t1 - self.t0) * 1e6),
+            "ts": self.tracer._us(self.t0), "dur": (p1 - self._p0) / 1e3,
             "pid": self.tracer.pid, "tid": self._tid,
             "args": self.attrs,
         })
@@ -78,7 +159,7 @@ class Span:
     def event(self, name: str, **attrs: Any) -> None:
         self.tracer._emit({
             "ph": _PH_INSTANT, "name": f"{self.name}.{name}", "cat": "event",
-            "ts": self.tracer._us(time.perf_counter()), "s": "t",
+            "ts": self.tracer._us(time.time_ns()), "s": "t",
             "pid": self.tracer.pid, "tid": threading.get_ident(),
             "args": attrs,
         })
@@ -120,7 +201,6 @@ class Tracer:
         self.enabled = enabled
         self.pid = os.getpid()
         self.process_name = process_name
-        self._epoch = time.perf_counter()
         self._buf: List[Dict[str, Any]] = []
         self._lock = threading.Lock()
         self._local = threading.local()
@@ -134,8 +214,10 @@ class Tracer:
             self._sink_file = open(sink, "a")
 
     # -- internals -----------------------------------------------------
-    def _us(self, t: float) -> int:
-        return int((t - self._epoch) * 1e6)
+    @staticmethod
+    def _us(t_ns: int) -> float:
+        """Unix nanoseconds as the exports' Unix microseconds."""
+        return t_ns / 1e3
 
     def _push(self) -> int:
         d = getattr(self._local, "depth", 0)
@@ -180,7 +262,7 @@ class Tracer:
             attrs.setdefault("worker", worker)
         self._emit({
             "ph": _PH_INSTANT, "name": name, "cat": "event",
-            "ts": self._us(time.perf_counter()), "s": "t",
+            "ts": self._us(time.time_ns()), "s": "t",
             "pid": self.pid, "tid": threading.get_ident(),
             "args": attrs,
         })
@@ -233,7 +315,9 @@ def chrome_trace(events: List[Dict[str, Any]], *, process_name: str = "repro",
     ``thread_name`` metadata, so a merged multi-worker trace renders the
     parallel timeline as named worker tracks."""
     meta: List[Dict[str, Any]] = []
-    pids = sorted({ev.get("pid", 0) for ev in events} | ({pid} - {None}))
+    # a profiler export names some tracks by a string pid
+    pids = sorted({ev.get("pid", 0) for ev in events} | ({pid} - {None}),
+                  key=str)
     for p in pids:
         meta.append({"ph": "M", "name": "process_name", "pid": p, "tid": 0,
                      "args": {"name": f"{process_name}:{p}"}})
@@ -250,13 +334,20 @@ def chrome_trace(events: List[Dict[str, Any]], *, process_name: str = "repro",
 
 def read_events(path: str) -> List[Dict[str, Any]]:
     """Load events from a ``trace.jsonl`` or a Chrome ``trace.json`` file
-    (metadata records are dropped so merges do not duplicate them)."""
+    (metadata records are dropped so merges do not duplicate them).  A
+    ``torch.profiler`` export counts its ``ts`` from ``baseTimeNanoseconds``;
+    that base is added back, so its events lie in Unix microseconds, as the
+    tracer's do."""
     with open(path) as f:
         text = f.read()
     try:                                      # chrome trace document...
         doc = json.loads(text)
         if isinstance(doc, dict) and "traceEvents" in doc:
             evs = doc["traceEvents"]
+            base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+            if base_us:
+                evs = [dict(ev, ts=ev["ts"] + base_us) if "ts" in ev else ev
+                       for ev in evs]
         elif isinstance(doc, list):
             evs = doc                         # bare traceEvents array
         else:

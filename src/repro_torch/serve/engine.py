@@ -2,6 +2,11 @@
 # One single-row prefill cache is reused for every prefill, where the
 # reference makes a new one each time, and so are the zero enc-dec frames and
 # VLM patches that `_insert` passes (the reference makes new zeros each time).
+# The engine's phases are `obs` spans (`engine.prefill`, `engine.decode` and
+# their `.forward`, `.read`, `.rows`; `profile.add_step`), and the forward
+# phases' durations go into the registry's histograms of the same names;
+# `run` writes nothing into the registry (the reference's `serve.*` values
+# had no reader).
 """Serving engine: continuous batching over a fixed-shape decode batch.
 
 Requests prefill into a single-row cache (fixed prefill length, padded) and
@@ -15,6 +20,16 @@ state for replay resets and elastic migration.
 Device state (the cache, the last tokens) is updated in place; the host reads
 the device once per decode step (the new tokens) and keeps a mirror of the
 rows' lengths, so the loop has no other synchronisation.
+
+Each iteration is a span of the process's tracer (`repro_torch.obs`): a
+prefill ``engine.prefill`` (``req``, ``slot``), a decode step
+``engine.decode`` (``rows``: the rows it decoded), each split into
+``.forward`` (all the iteration issues to the device before its read),
+``.read`` (the read, which waits for the device) and, for a decode step,
+``.rows`` (the host's walk over the rows); ``profile.add_step`` is the
+profile's hook.  ``engine.prefill.forward`` and ``engine.decode.forward``
+also observe their seconds into the registry's histograms of those names,
+one observation an iteration, tracing on or off.
 """
 from __future__ import annotations
 
@@ -128,62 +143,76 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def _insert(self, slot: int, req: Request):
-        # prompts are padded with token 0 to prefill_len and not masked
-        p = np.zeros(self.prefill_len, np.int32)
-        n = min(len(req.prompt), self.prefill_len)
-        p[:n] = req.prompt[:n]
-        batch = {"tokens": torch.from_numpy(p)[None].to(self.device),
-                 **self.stub_inputs}
-        logits, pre_cache, _ = self.model.prefill(self.model_params, batch,
-                                                  self.pre_cache)
-        # copy row 0 of every key of the single-row cache into the decode
-        # slot (cross cache and int8 scales included), in place and on the
-        # device
-        for key, dst in self.cache.items():
-            if key == "length":
-                dst[slot].copy_(pre_cache[key][0])
-            else:
-                dst[:, slot].copy_(pre_cache[key][:, 0])
-        self.lengths[slot] = self.prefill_len
-        tok = greedy(logits)
-        self.last_token[slot] = tok[0]
-        self.active[slot] = True
-        self.remaining[slot] = req.max_new_tokens
-        req.output = [int(tok[0, 0])]
-        self.slot_req[slot] = req
-        if self.builder is not None:
-            self.builder.add_step(kind="prefill")
-        self.kinds_log.append("prefill")
-        self.iterations += 1
-        obs.metrics().count("serve.prefill_iters")
+        with obs.span("engine.prefill", req=req.req_id, slot=slot):
+            # prompts are padded with token 0 to prefill_len and not masked
+            p = np.zeros(self.prefill_len, np.int32)
+            n = min(len(req.prompt), self.prefill_len)
+            p[:n] = req.prompt[:n]
+            with obs.timed("engine.prefill.forward"):
+                batch = {"tokens": torch.from_numpy(p)[None].to(self.device),
+                         **self.stub_inputs}
+                logits, pre_cache, _ = self.model.prefill(
+                    self.model_params, batch, self.pre_cache)
+                # copy row 0 of every key of the single-row cache into the
+                # decode slot (cross cache and int8 scales included), in
+                # place and on the device
+                for key, dst in self.cache.items():
+                    if key == "length":
+                        dst[slot].copy_(pre_cache[key][0])
+                    else:
+                        dst[:, slot].copy_(pre_cache[key][:, 0])
+                tok = greedy(logits)
+                self.last_token[slot] = tok[0]
+            with obs.span("engine.prefill.read"):
+                first = int(tok[0, 0])         # waits for the prefill
+            self.lengths[slot] = self.prefill_len
+            self.active[slot] = True
+            self.remaining[slot] = req.max_new_tokens
+            req.output = [first]
+            self.slot_req[slot] = req
+            if self.builder is not None:
+                with obs.span("profile.add_step"):
+                    self.builder.add_step(kind="prefill")
+            self.kinds_log.append("prefill")
+            self.iterations += 1
+            obs.metrics().count("serve.prefill_iters")
 
     def _decode_all(self):
-        logits, self.cache, _ = self.model.decode_step(
-            self.model_params, self.last_token, self.cache)
-        if self.temperature > 0:
-            tok = sample(logits, self.rng, temperature=self.temperature)
-        else:
-            tok = greedy(logits)
-        self.last_token = tok
-        self.lengths += 1              # the step adds 1 to every row's length
-        toks = tok[:, 0].cpu().numpy()  # the step's one device read
-        for b in range(self.batch):
-            if not self.active[b]:
-                continue
-            req = self.slot_req[b]
-            req.output.append(int(toks[b]))
-            self.remaining[b] -= 1
-            if (self.remaining[b] <= 0
-                    or self.lengths[b] >= self.max_seq - 1):
-                req.finished_at = time.perf_counter()
-                self.done.append(req)
-                self.active[b] = False
-                self.slot_req[b] = None
-        if self.builder is not None:
-            self.builder.add_step(kind="decode")
-        self.kinds_log.append("decode")
-        self.iterations += 1
-        obs.metrics().count("serve.decode_iters")
+        with obs.span("engine.decode") as sp:
+            with obs.timed("engine.decode.forward"):
+                logits, self.cache, _ = self.model.decode_step(
+                    self.model_params, self.last_token, self.cache)
+                if self.temperature > 0:
+                    tok = sample(logits, self.rng,
+                                 temperature=self.temperature)
+                else:
+                    tok = greedy(logits)
+            self.last_token = tok
+            self.lengths += 1          # the step adds 1 to every row's length
+            with obs.span("engine.decode.read"):
+                toks = tok[:, 0].cpu().numpy()  # the step's one device read
+            rows = 0
+            with obs.span("engine.decode.rows"):
+                for b in range(self.batch):
+                    if not self.active[b]:
+                        continue
+                    rows += 1
+                    req = self.slot_req[b]
+                    req.output.append(int(toks[b]))
+                    self.remaining[b] -= 1
+                    if (self.remaining[b] <= 0
+                            or self.lengths[b] >= self.max_seq - 1):
+                        req.finished_at = time.perf_counter()
+                        self.done.append(req)
+                        self.active[b] = False
+                        self.slot_req[b] = None
+            sp.set(rows=rows)
+            if self.builder is not None:
+                with obs.span("profile.add_step"):
+                    self.builder.add_step(kind="decode")
+            self.kinds_log.append("decode")
+            self.iterations += 1
+            obs.metrics().count("serve.decode_iters")
 
     # ------------------------------------------------------------------
     def step(self, params) -> bool:
@@ -211,12 +240,6 @@ class ServeEngine:
         toks = sum(len(r.output or []) for r in self.done)
         lat = [r.finished_at - r.submitted_at for r in self.done
                if r.finished_at]
-        m = obs.metrics()
-        m.count("serve.requests", len(self.done))
-        m.count("serve.tokens", toks)
-        m.record("serve.tokens_per_s", toks / max(wall, 1e-9))
-        for v in lat:
-            m.observe("serve.latency_s", v)
         return {
             "wall_s": wall,
             "tokens": toks,
