@@ -4,10 +4,13 @@
     python3 chip_smoke.py            # every phase; needs one card
 
 Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
-intra-chunk) from the sources in this checkout, holds each kernel against its
-plain PyTorch version on the card (a sweep of small shapes and the serving
-paths' full-width shapes, timed; gemma3-4b's at a windowed and at a global
-layer), then serves 16 requests on each of twelve paths in turn (bf16, random
+intra-chunk, the grouped MoE products of a decode step) from the sources in
+this checkout, holds each kernel against its plain PyTorch version on the card
+(a sweep of small shapes and the serving paths' full-width shapes, timed;
+gemma3-4b's at a windowed and at a global layer; the grouped MoE kernel at
+the benchmark's decode rows, 256 and 96, and at the path's batch, beside the
+whole MoE layer on the buffer path it replaces, and an engine decode step at
+256 rows held to one synchronising call), then serves 16 requests on each of twelve paths in turn (bf16, random
 weights from seed 0) through the port's ``ServeEngine``: qwen3-1.7b, the same
 with int8 weights (quantized from its weights) and an int8 KV cache
 (``qwen3-1.7b/int8``), the same with int4 weights (random nibbles from seed
@@ -23,9 +26,12 @@ expert) and mistral-large-123b with 4 of its 88 layers (a GQA group of 12:
 K2's two head blocks); each cut is named in the path's ``reduced``. For each
 path it checks by the launch counters that every prefill went through the
 kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and every
-decode step through K2 per attention layer, holds the kernel path against the
+decode step through K2 per attention layer (and the grouped MoE kernel per
+MoE layer), holds the kernel path against the
 plain path on the card (in bf16 and in f32 activations; for MoE with the
-share of routing decisions that differ), and builds the interval profile of
+share of routing decisions that differ, the plain path's experts on their
+buffers, and the plain path with the grouped kernel beside it), and builds
+the interval profile of
 the run. Then the model-accuracy study of the paper's §V-B (``accuracy``):
 for qwen3-1.7b, mamba2-780m and olmoe-1b-7b (4 of 16 layers) the ATen graph
 of the loss forward against the kernels one call runs under torch.profiler,
@@ -154,16 +160,20 @@ MOE_F32_REL_TOL = 3e-2
 PATH_F32_REL_TOL = {"dense": 1e-4, "ssm": 6e-2, "hybrid": 6e-2,
                     "moe": MOE_F32_REL_TOL, "encdec": 1e-4, "vlm": 1e-4}
 
-KERNELS = ("flash_attention", "flash_decode", "ssd_intra")
+KERNELS = ("flash_attention", "flash_decode", "ssd_intra", "grouped_mlp")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
     "ssd_intra": "src/repro/kernels/ssd.py:62",
+    # added for the MoE decode step; the reference's experts are XLA
+    # einsums over capacity buffers
+    "grouped_mlp": None,
 }
 SOURCES = {       # the kernel that the bf16 timings measure
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "ssd_intra": "src/repro_torch/kernels/csrc/ssd_tc.cu",
+    "grouped_mlp": "src/repro_torch/kernels/csrc/moe_grouped.cu",
 }
 SOURCES_ALL = {**{k: [v] for k, v in SOURCES.items()},
                "flash_attention": [   # entry point and the f32 kernel, bf16
@@ -750,6 +760,223 @@ def full_width_ssd(gen, cfg, prefill_len: int) -> dict:
             "bound_share": bound_ms / ms, "bytes": n_bytes, "flops": flops}
 
 
+# The grouped MoE kernel against its plain version.  Both sum in f32 and
+# round h and the output to bf16 at the same places, so they differ where a
+# sum in another order lands on the other side of a rounding: at most one
+# bf16 unit of an output, and a flipped h moves an output by far less.  The
+# limit is one bf16 unit (eps 2^-7) of the largest output.
+GROUPED_REL_TOL = torch.finfo(torch.bfloat16).eps
+# Rows of the benchmark's MoE decode steps: the chat cell's 256 and the long
+# prompt cell's 96 (portbench/traffic/); each MoE path is timed at these and
+# at its own batch.
+MOE_DECODE_ROWS = (256, 96)
+
+
+def _grouped_inputs(gen, t, e, k, d, fe, route="router"):
+    """(x, wi, wg, wo, order, counts, ends) for `grouped_mlp`: bf16 x of
+    std 1 and weights of std 1/sqrt(fan-in), and a route: the top-k of
+    random logits ("router"), every token to experts 0..k-1 ("same"), or,
+    for k 1, a list of each expert's count, in a random order."""
+    from repro_torch.kernels.moe_grouped import sort_entries
+    from repro_torch.models.moe import expert_counts
+    dtype = torch.bfloat16
+    x = _randn(gen, (t, d), dtype)
+    wi = _randn(gen, (e, d, fe), dtype, d ** -0.5)
+    wg = _randn(gen, (e, d, fe), dtype, d ** -0.5)
+    wo = _randn(gen, (e, fe, d), dtype, fe ** -0.5)
+    if route == "router":
+        logits = torch.randn((t, e), generator=gen, device="cuda")
+        flat = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    elif route == "same":
+        flat = torch.arange(k, device="cuda").repeat(t)
+    else:
+        assert k == 1 and sum(route) == t, (k, route, t)
+        flat = torch.repeat_interleave(torch.arange(e, device="cuda"),
+                                       torch.tensor(route, device="cuda"))
+        flat = flat[torch.randperm(t, generator=gen, device="cuda")]
+    counts = expert_counts(flat, e)
+    order, ends = sort_entries(flat, counts)
+    return x, wi, wg, wo, order, counts, ends
+
+
+def _check_grouped(got, want, case, worst) -> None:
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"grouped_mlp {case}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if err > GROUPED_REL_TOL * scale:
+        raise AssertionError(f"grouped_mlp {case}: max abs error {err} > "
+                             f"{GROUPED_REL_TOL} x {scale}")
+    worst["abs"] = max(worst.get("abs", 0.0), err)
+    worst["rel"] = max(worst.get("rel", 0.0), err / scale)
+
+
+def sweep_grouped_mlp(gen) -> dict:
+    """The grouped MoE kernel against its plain version at small shapes:
+    one token, every expert taking every token, experts with no entry, with
+    1, 15, 16, 17, 63, 64, 65 and 80 entries (one to two chunks of 64) and
+    with 200 (four), widths of one to four tiles."""
+    from repro_torch.kernels.moe_grouped import grouped_mlp, grouped_mlp_plain
+    cases = [  # (tokens, experts, top_k, d, d_expert, route)
+        (1, 4, 1, 64, 64, "router"),
+        (3, 4, 2, 128, 64, "router"),
+        (7, 8, 8, 64, 128, "router"),
+        (64, 64, 8, 256, 128, "router"),
+        (200, 4, 2, 64, 192, "same"),
+        (256, 8, 1, 128, 64, [0, 1, 15, 16, 17, 63, 64, 80]),
+        (130, 3, 1, 64, 64, [0, 65, 65]),
+    ]
+    worst: dict = {}
+    for t, e, k, d, fe, route in cases:
+        args = _grouped_inputs(gen, t, e, k, d, fe, route)
+        _check_grouped(grouped_mlp(*args, top_k=k),
+                       grouped_mlp_plain(*args, top_k=k),
+                       (t, e, k, d, fe, route), worst)
+    return {"cases": len(cases), "max_err": worst}
+
+
+@contextlib.contextmanager
+def buffer_path():
+    """`moe_mlp` on its buffer path whatever the input (the grouped route
+    closed)."""
+    from repro_torch.models import moe
+    real = moe.grouped_route
+    moe.grouped_route = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        moe.grouped_route = real
+
+
+def _grouped_library(args, k):
+    """One library yardstick, never called by the port: the three products
+    as `torch._grouped_mm` calls on the tokens already gathered in sorted
+    order (the gather not timed), the gate in bf16 between them.  (ms, max
+    error relative to the plain version's largest output), or (None, why)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_grouped import grouped_mlp_plain
+    x, wi, wg, wo, order, counts, ends = args
+    mm = getattr(torch, "_grouped_mm", None)
+    if mm is None:
+        return None, "torch._grouped_mm is absent"
+    xs = x[order // k]
+
+    def call():
+        a = mm(xs, wi, offs=ends)
+        return mm(F.silu(a) * mm(xs, wg, offs=ends), wo, offs=ends)
+    try:
+        got = call()
+    except (RuntimeError, TypeError, ValueError) as err:
+        return None, f"{type(err).__name__}: {str(err)[:200]}"
+    want = grouped_mlp_plain(*args, top_k=k)[order].float()
+    rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+    return time_ms(call), rel
+
+
+def full_width_grouped_mlp(gen, cfg, t: int) -> dict:
+    """The grouped MoE kernel at a decode step of ``t`` rows at `cfg`'s
+    widths, routed by random logits: against its plain version, timed beside
+    the plain version, the library yardstick and its bound (the routed
+    experts' weights, the tokens and the outputs, each once); then the whole
+    MoE layer (`moe_mlp`, weights from the model's init) on the grouped path
+    against the buffer path it replaces, timed, with their largest
+    difference relative to the largest output (bf16 rounds at other places
+    on the buffer path: reported, not held)."""
+    from repro_torch.kernels.moe_grouped import grouped_mlp, grouped_mlp_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    m = cfg.moe
+    d, fe, e, k = cfg.d_model, m.d_expert, m.n_experts, m.top_k
+    dtype = torch.bfloat16
+    args = _grouped_inputs(gen, t, e, k, d, fe)
+    worst: dict = {}
+    _check_grouped(grouped_mlp(*args, top_k=k),
+                   grouped_mlp_plain(*args, top_k=k), (cfg.name, t), worst)
+    ms = time_ms(lambda: grouped_mlp(*args, top_k=k))
+    plain_ms = time_ms(lambda: grouped_mlp_plain(*args, top_k=k),
+                       warmup=1, reps=3, inner=2)
+    library_ms, library_err = _grouped_library(args, k)
+    n = t * k
+    active = int((args[5] > 0).sum())
+    n_bytes = (2 * (t * d + active * 3 * d * fe + n * d)   # x, weights, out
+               + 8 * n + 8 * e)                           # order, counts, ends
+    flops = 2.0 * 3 * n * d * fe
+    bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    del args
+    params = L.init_tree(gen, M.moe_specs(cfg), dtype, "cuda")
+    x = _randn(gen, (t, 1, d), dtype)
+    with torch.no_grad():
+        grouped_y = M.moe_mlp(params, cfg, x)[0]
+        layer_ms = time_ms(lambda: M.moe_mlp(params, cfg, x))
+        with buffer_path():
+            buffer_y = M.moe_mlp(params, cfg, x)[0]
+            buffer_ms = time_ms(lambda: M.moe_mlp(params, cfg, x))
+    torch.cuda.synchronize()
+    diff = ((grouped_y.float() - buffer_y.float()).abs().max()
+            / buffer_y.float().abs().max()).item()
+    assert math.isfinite(diff), diff
+    return {"arch": cfg.name,
+            "shape": {"rows": t, "experts": e, "top_k": k, "d": d,
+                      "d_expert": fe, "entries": n, "experts_routed": active,
+                      "dtype": "bfloat16"},
+            "max_abs_err": worst["abs"], "max_rel_err": worst["rel"],
+            "limit": f"{GROUPED_REL_TOL} x the largest output",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch._grouped_mm x 3 on pre-gathered rows",
+            "library_max_rel_err": library_err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": n_bytes, "flops": flops,
+            "moe_layer_ms": layer_ms, "buffer_path_layer_ms": buffer_ms,
+            "grouped_vs_buffer_rel_diff": diff}
+
+
+def grouped_decode_syncs(cfg, rows: int, steps: int = 3) -> dict:
+    """Engine decode steps at ``rows`` rows (the chat cell's 256) on `cfg`
+    at full depth, profile hooks on: each makes exactly one synchronising
+    call (its read of the tokens, `set_sync_debug_mode`) and one grouped
+    product a MoE layer.  Every row decodes, active or not, so two requests
+    suffice."""
+    import warnings
+    import numpy as np
+    from repro_torch.kernels.moe_grouped import grouped_mlp
+    from repro_torch.serve.engine import Request, ServeEngine
+    params = serve_params(cfg, None)
+    eng = ServeEngine(cfg, batch=rows, max_seq=64, prefill_len=16,
+                      instrument=True)
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, 16).astype(
+            np.int32), 40))
+    while eng.queue:
+        eng.step(params)
+    eng.step(params)                     # a first decode step: warm
+    torch.cuda.synchronize()
+    syncs, launches, step_ms = [], [], []
+    for _ in range(steps):
+        before = grouped_mlp.launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                eng.step(params)
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append([str(w.message).splitlines()[0][:100] for w in caught
+                      if str(w.message).startswith(
+                          "called a synchronizing CUDA operation")])
+        launches.append(grouped_mlp.launches - before)
+    assert eng.kinds_log[-steps:] == ["decode"] * steps, eng.kinds_log
+    assert all(len(s) == 1 for s in syncs), syncs
+    assert launches == [cfg.n_layers] * steps, launches
+    del eng, params
+    return {"arch": cfg.name, "rows": rows, "steps": steps,
+            "syncs_per_step": [len(s) for s in syncs], "sync": syncs[0][0],
+            "grouped_launches_per_step": launches, "step_ms": step_ms}
+
+
 def phase_kernels(paths, batch) -> dict:
     """Every kernel over its sweep, then at the full-width shapes that the
     serving paths give it, each timed (the enc-dec path's K1 at its encoder
@@ -761,6 +988,7 @@ def phase_kernels(paths, batch) -> dict:
     out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
     out["flash_decode"]["sweep"] = sweep_flash_decode(gen)
     out["ssd_intra"]["sweep"] = sweep_ssd(gen)
+    out["grouped_mlp"]["sweep"] = sweep_grouped_mlp(gen)
     for path, cfg, prefill_len, max_seq in paths:
         if "/" in path:                 # a variant: its base path's shapes
             continue
@@ -788,6 +1016,15 @@ def phase_kernels(paths, batch) -> dict:
         if cfg.family in ("ssm", "hybrid"):
             out["ssd_intra"]["full_width"].append(
                 full_width_ssd(gen, cfg, prefill_len))
+        if grouped_layers(cfg):
+            for rows in MOE_DECODE_ROWS + (batch,):
+                out["grouped_mlp"]["full_width"].append(
+                    full_width_grouped_mlp(gen, cfg, rows))
+                gc.collect()
+                torch.cuda.empty_cache()
+            if "decode_syncs" not in out["grouped_mlp"]:
+                out["grouped_mlp"]["decode_syncs"] = grouped_decode_syncs(
+                    cfg, MOE_DECODE_ROWS[0])
         gc.collect()
         torch.cuda.empty_cache()
     dense = [p[1] for p in paths if p[1].family == "dense"]
@@ -899,9 +1136,10 @@ def plans_ssd(gen, cfg, prefill_len: int) -> dict:
 def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "ssd_intra": ssd_intra}
+            "ssd_intra": ssd_intra, "grouped_mlp": grouped_mlp}
 
 
 def reset_counters() -> None:
@@ -922,17 +1160,31 @@ def n_attention_layers(cfg) -> int:
             "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
 
 
+def grouped_layers(cfg) -> int:
+    """The MoE layers whose decode step takes the grouped kernel
+    (`models.moe.grouped_route`): every layer of a MoE configuration the
+    kernel computes in its compute dtype, else none."""
+    from repro_torch.configs.base import dtype_of
+    from repro_torch.kernels.moe_grouped import takes
+    if cfg.family != "moe" or not takes(cfg.glu, cfg.act,
+                                        dtype_of(cfg.compute_dtype),
+                                        cfg.d_model, cfg.moe.d_expert):
+        return 0
+    return cfg.n_layers
+
+
 def expected_launches(cfg, prefills: int, decodes: int) -> dict:
     """Launches of each kernel on a serving run: K1 per attention layer of a
     prefill (the enc-dec family's encoder layers, non-causal, included), K2
     per attention layer of a decode step, K3 per Mamba2 layer of a
-    prefill."""
+    prefill, the grouped MoE kernel per MoE layer of a decode step."""
     n_attn = n_attention_layers(cfg)
     n_enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
     n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": prefills * (n_enc + n_attn),
             "flash_decode": decodes * n_attn,
-            "ssd_intra": prefills * n_ssm}
+            "ssd_intra": prefills * n_ssm,
+            "grouped_mlp": decodes * grouped_layers(cfg)}
 
 
 def serve_params(cfg, given):
@@ -1152,16 +1404,26 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
     # block: K1 not causal over the frames).
     ref_cfg = dataclasses.replace(cfg, attention_impl="reference",
                                   ssm_impl="chunked")
+    #
+    # The plain paths run with the grouped route closed (`buffer_path`), so
+    # the kernel path's decode step, whose experts take the grouped kernel
+    # on a MoE path, is compared with one that has no grouped kernel; on such
+    # a path the plain model with the route open (`plain_grouped`) is run
+    # too, and its difference from the plain path (the grouped kernel alone,
+    # through the whole model) is reported beside the others.
     models = {"kernel": model, "plain": build_model(ref_cfg),
               "f32": build_model(dataclasses.replace(
                   ref_cfg, compute_dtype="float32")),
               "kernel_f32": build_model(dataclasses.replace(
                   cfg, compute_dtype="float32"))}
+    if grouped_layers(cfg):
+        models["plain_grouped"] = build_model(ref_cfg)
     batch_in = path_inputs(cfg, requests()[0].prompt)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    logits, routes = path_logits(models, params, batch_in, max_seq)
+    logits, routes = path_logits(models, params, batch_in, max_seq,
+                                 on_buffer=("plain", "f32"))
     errs = {}
     for what in ("prefill_logits", "decode_logits"):
         e = logit_errs(logits, what)
@@ -1177,6 +1439,13 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
                 pair: routing_differs(routes[a][what], routes[b][what],
                                       by_layer=True)
                 for pair, (a, b) in PAIRS.items()}
+            if "plain_grouped" in logits:
+                e["plain_grouped_vs_plain"] = (
+                    logits["plain_grouped"][what]
+                    - logits["plain"][what]).abs().max().item()
+                e["routing_differs"]["plain_grouped_vs_plain"] = \
+                    routing_differs(routes["plain_grouped"][what],
+                                    routes["plain"][what])
         else:
             assert e["kernel_vs_plain"] <= e["limit"], (what, e)
             assert e["kernel_vs_f32"] <= 1.25 * e["plain_vs_f32"], (what, e)
@@ -1210,7 +1479,8 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
     checks_peak = torch.cuda.max_memory_allocated()   # the f32 models' too
     ref_eng = ServeEngine(ref_cfg, batch=batch, max_seq=max_seq,
                           prefill_len=prefill_len, instrument=False)
-    ref_stats = ref_eng.run(params, requests())
+    with buffer_path():
+        ref_stats = ref_eng.run(params, requests())
     same = total = 0
     for r in ref_eng.done:
         out = outputs[r.req_id]
@@ -1258,23 +1528,32 @@ PAIRS = {"kernel_vs_plain": ("kernel", "plain"),
          "f32_kernel_vs_plain": ("kernel_f32", "f32")}
 
 
-def path_logits(models, params, batch_in, max_seq):
+def path_logits(models, params, batch_in, max_seq, on_buffer=()):
     """Each model's prefill logits of `batch_in` and those of one decode
-    step after it, with the expert choices of every MoE layer."""
+    step after it, with the expert choices of every MoE layer; the models
+    named in ``on_buffer`` run with the grouped route closed."""
     logits, routes = {}, {}
     for name, m in models.items():
-        cache = m.init_cache(2, max_seq)
-        with RoutingSpy() as pre_spy:
-            pre = m.prefill(params, batch_in, cache)[0].float()
-        tok = torch.full((2, 1), 17, dtype=torch.int32,
-                         device=batch_in["tokens"].device)
-        with RoutingSpy() as dec_spy:
-            dec = m.decode_step(params, tok, cache)[0].float()
-        logits[name] = {"prefill_logits": pre, "decode_logits": dec}
-        routes[name] = {"prefill_logits": pre_spy.choices,
-                        "decode_logits": dec_spy.choices}
-        del cache
+        with buffer_path() if name in on_buffer else contextlib.nullcontext():
+            logits[name], routes[name] = _one_path(m, params, batch_in,
+                                                   max_seq)
     return logits, routes
+
+
+def _one_path(m, params, batch_in, max_seq):
+    """One model's (logits, expert choices) of the prefill and one decode
+    step, for `path_logits`."""
+    cache = m.init_cache(2, max_seq)
+    with RoutingSpy() as pre_spy:
+        pre = m.prefill(params, batch_in, cache)[0].float()
+    tok = torch.full((2, 1), 17, dtype=torch.int32,
+                     device=batch_in["tokens"].device)
+    with RoutingSpy() as dec_spy:
+        dec = m.decode_step(params, tok, cache)[0].float()
+    del cache
+    return ({"prefill_logits": pre, "decode_logits": dec},
+            {"prefill_logits": pre_spy.choices,
+             "decode_logits": dec_spy.choices})
 
 
 def logit_errs(logits, what) -> dict:
@@ -1451,10 +1730,11 @@ def phase_trace(path, eng, params, prefill_len: int, steps: int = 5) -> None:
         rows.sort(key=lambda r: -r[1])
         out[name] = {
             "host_ms": host_ms, "device_busy_ms": busy_ms,
-            # the port's own kernels (K1, K2, K3) by name
+            # the port's own kernels (K1, K2, K3, the grouped MoE) by name
             "port_kernels": {k[:60]: {"ms": ms, "calls": n}
                              for k, ms, n in rows
-                             if "flash_" in k or "ssd_" in k},
+                             if "flash_" in k or "ssd_" in k
+                             or "moe_grouped" in k},
             "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:70], "ms": ms, "calls": n}
@@ -1888,12 +2168,20 @@ def train_step_parts(tr, state, batch) -> dict:
     return parts
 
 
+def _one_entry():
+    """(order, counts, ends) of one token routed to the only expert."""
+    return (torch.zeros((1,), dtype=torch.int64, device="cuda"),
+            torch.ones((1,), dtype=torch.int32, device="cuda"),
+            torch.ones((1,), dtype=torch.int32, device="cuda"))
+
+
 def kernels_refuse_grad(cfg, params, batch) -> dict:
     """Each kernel wrapper, given CUDA tensors that require grad under grad
     mode, raises instead of returning an output without a grad_fn; so does
     `Model.loss` on `attention_impl="cuda"`.  None of them launches."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     from repro_torch.models.model_zoo import build_model
 
@@ -1910,6 +2198,9 @@ def kernels_refuse_grad(cfg, params, batch) -> dict:
             q, leaf(1, 64, 4, dtype=torch.float32),
             leaf(4, dtype=torch.float32), leaf(1, 64, 16), leaf(1, 64, 16),
             64),
+        "grouped_mlp": lambda: grouped_mlp(
+            leaf(1, 64), leaf(1, 64, 64), leaf(1, 64, 64), leaf(1, 64, 64),
+            *_one_entry(), top_k=1),
         "model_loss_cuda": lambda: build_model(dataclasses.replace(
             cfg, attention_impl="cuda")).loss(params, batch),
     }
@@ -2677,6 +2968,7 @@ def kernels_refuse_dtensor(mesh) -> dict:
     from torch.distributed.tensor import Replicate, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
 
     def leaf(*shape, dtype=torch.bfloat16):
@@ -2694,6 +2986,9 @@ def kernels_refuse_dtensor(mesh) -> dict:
             q, leaf(1, 64, 4, dtype=torch.float32),
             leaf(4, dtype=torch.float32), leaf(1, 64, 16), leaf(1, 64, 16),
             64),
+        "grouped_mlp": lambda: grouped_mlp(
+            leaf(1, 64), leaf(1, 64, 64), leaf(1, 64, 64), leaf(1, 64, 64),
+            *_one_entry(), top_k=1),
     }
     before = read_counters()
     out = {}
@@ -2986,7 +3281,7 @@ def one_card_check(tmp) -> dict:
     torch.cuda.synchronize()
     launches = read_counters()
     want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers,
-            "ssd_intra": 0}
+            "ssd_intra": 0, "grouped_mlp": 0}
     assert launches == want, (launches, want)
     out["launches"] = launches
     for k, fn in (("decode", decode), ("prefill", prefill)):

@@ -38,6 +38,8 @@ SIGNATURES = {
                      _I, _I, _P],
     "rt_ssd_intra_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
+    "rt_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P],
 }
 
 _lock = threading.Lock()

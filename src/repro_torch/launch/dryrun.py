@@ -517,14 +517,16 @@ def run_cell(arch: str, shape: Union[str, Any], mesh_kind: str,
 
 
 def kernel_launches() -> Dict[str, int]:
-    """The K1 / K2 / K3 wrappers' launch counts in this process (a dry-run
-    cell runs on fake tensors and launches none)."""
+    """The K1 / K2 / K3 and grouped MoE wrappers' launch counts in this
+    process (a dry-run cell runs on fake tensors and launches none)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     return {"flash_attention": flash_attention.launches,
             "flash_decode": flash_decode.launches,
-            "ssd_intra": ssd_intra.launches}
+            "ssd_intra": ssd_intra.launches,
+            "grouped_mlp": grouped_mlp.launches}
 
 
 # ---------------------------------------------------------------------------

@@ -25,11 +25,21 @@ Ties in the router's top-k go to the lower expert index, as
 and on the card returns equal values in index order.  With f32 random
 weights ties do not occur in practice.
 
+At decode (one token a row, so no capacity can bind) a plain bf16 CUDA
+tensor takes the grouped path instead (`grouped_route`): the entries sorted by
+expert on the device and the experts' products over them alone, by the
+kernel of ``kernels/moe_grouped.py``, with no buffer; both paths share the
+gates' combine (`_combine`), every entry kept on this one.  Prefill and training (``s > 1``), the
+CPU, meta and fake tensors, traces and DTensors keep the buffer path.
+
 The layer's phases are labelled ``nugget_block_moe.route``, ``.dispatch``,
 ``.experts`` and ``.combine`` (`layers.scope`), and each call adds its
 routed (token, expert) entries to the registry's ``moe.entries`` and the
-buffer rows its products run over to ``moe.slots`` (host integers from
-shapes; not under a ``make_fx`` trace or fake tensors).
+rows its products run over to ``moe.slots``: the buffer's rows, or on the
+grouped path the most rows its m16 tiles can cover (`grouped_rows` of
+``kernels/moe_grouped.py``), whose entries it also adds to
+``moe.grouped_entries`` (host integers from shapes; not under a ``make_fx``
+trace or fake tensors).
 
 The scatter into the expert buffers is ``index_add_``.  A dropped entry adds
 ``token * 0`` to its expert's last slot, so the result does not depend on
@@ -47,6 +57,7 @@ from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed.sharding import (from_local_part, local_part,
                                               shard)
+from repro_torch.kernels import moe_grouped as G
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
 
@@ -157,6 +168,91 @@ def expert_mlp(params, cfg: ArchConfig, buf: torch.Tensor) -> torch.Tensor:
     return out.reshape(e, b, c, d).transpose(0, 1)
 
 
+def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[E] int32 entries per expert of the expert ids ``flat_e``, by
+    ``index_add_`` (``bincount`` would read its maximum to the host)."""
+    return torch.zeros((n_experts,), dtype=torch.int32,
+                       device=flat_e.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+
+
+def grouped_route(cfg: ArchConfig, x: torch.Tensor, params) -> bool:
+    """Whether the experts' products take the grouped kernel: one token a row
+    (``s == 1``: no capacity can bind, so no entry drops), a plain CUDA
+    tensor outside any trace, a configuration the kernel computes, and no
+    gradient to carry."""
+    wi = params["wi"]
+    return (x.shape[1] == 1 and x.device.type == "cuda"
+            and not isinstance(x, DTensor) and not isinstance(wi, DTensor)
+            and not obs.tracing()
+            and G.takes(cfg.glu, cfg.act, x.dtype, cfg.d_model,
+                        cfg.moe.d_expert)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or wi.requires_grad)))
+
+
+def _grouped_moe(params, cfg: ArchConfig, x: torch.Tensor, top_e, top_g,
+                 aux) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The rest of `moe_mlp` on the grouped path: the entries sorted by
+    expert (their counts are the router statistics' ``expert_tokens``), the
+    products over them alone, and the combine (`_combine`, every entry
+    kept)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    dtype = x.dtype
+    n = b * s * m.top_k
+    with L.scope("nugget_block_moe.dispatch"):
+        flat = top_e.reshape(-1)
+        counts = expert_counts(flat, m.n_experts)
+        order, ends = G.sort_entries(flat, counts)
+    if not obs.tracing():
+        reg = obs.metrics()
+        reg.count("moe.entries", n)
+        reg.count("moe.slots", G.grouped_rows(n, m.n_experts))
+        reg.count("moe.grouped_entries", n)
+    with L.scope("nugget_block_moe.experts"):
+        out = G.grouped_mlp(x.reshape(b * s, d), params["wi"].to(dtype),
+                            params["wg"].to(dtype), params["wo"].to(dtype),
+                            order, counts, ends, top_k=m.top_k)
+    with L.scope("nugget_block_moe.combine"):
+        y = _combine(params, cfg, x, out.reshape(b, s * m.top_k, d), top_g,
+                     None, aux, counts=counts)
+    return y, aux
+
+
+def _combine(params, cfg: ArchConfig, x: torch.Tensor, rows: torch.Tensor,
+             gates: torch.Tensor, keep: Optional[torch.Tensor],
+             aux: Dict[str, torch.Tensor], *,
+             top_e: Optional[torch.Tensor] = None,
+             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both paths' combine: each entry's expert output ``rows`` [b, s*k, d]
+    in (token, k) order (this rank's batch rows) weighted by its gate
+    (times ``keep``; None: every entry kept), summed over k, plus the shared
+    expert; sets the router statistics in ``aux``: the entries per expert
+    (``counts``, or counted here from ``top_e``) and the dropped ones."""
+    m = cfg.moe
+    bl, _, d = rows.shape
+    s, dtype = x.shape[1], x.dtype
+    kept = None if keep is None else keep[..., None].to(dtype)
+    w = gates.reshape(bl, -1)[..., None].to(dtype)
+    if kept is not None:
+        w = kept * w
+    y = from_local_part(
+        torch.sum((rows * w).reshape(bl, s, m.top_k, d), dim=2), x)
+
+    if m.n_shared_experts:
+        y = y + L.mlp(params["shared"], x, cfg.act, dtype)
+
+    # ---- dynamic Nugget-signature entries -------------------------------
+    if counts is None:
+        counts = expert_counts(top_e.reshape(-1), m.n_experts)
+    aux["expert_tokens"] = from_local_part(counts, x, partial=True)
+    aux["dropped_tokens"] = from_local_part(
+        torch.zeros((), dtype=torch.int32, device=x.device) if keep is None
+        else torch.sum(~keep).to(torch.int32), x, partial=True)
+    return y
+
+
 def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
             rng: Optional[torch.Generator] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -167,6 +263,8 @@ def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
 
     with L.scope("nugget_block_moe.route"):
         top_e, top_g, aux = route(params["router"], x, m, rng)
+    if grouped_route(cfg, x, params):
+        return _grouped_moe(params, cfg, x, top_e, top_g, aux)
     with L.scope("nugget_block_moe.dispatch"):
         # this rank's batch rows (all of them on one device)
         x_l, e_l, g_l = (local_part(t, x) for t in (x, top_e, top_g))
@@ -197,22 +295,7 @@ def moe_mlp(params, cfg: ArchConfig, x: torch.Tensor, *,
     with L.scope("nugget_block_moe.combine"):
         # gather back and combine with the gates
         gathered = torch.gather(out_buf, 1, slot[..., None].expand(bl, -1, d))
-        gathered = gathered * (keep[..., None].to(dtype) *
-                               g_l.reshape(bl, -1)[..., None].to(dtype))
-        y = from_local_part(
-            torch.sum(gathered.reshape(bl, s, m.top_k, d), dim=2), x)
-
-        if m.n_shared_experts:
-            y = y + L.mlp(params["shared"], x, cfg.act, dtype)
-
-        # ---- dynamic Nugget-signature entries ---------------------------
-        flat = e_l.reshape(-1)
-        counts = torch.zeros((m.n_experts,), dtype=torch.int32,
-                             device=x.device).index_add_(
-            0, flat, torch.ones_like(flat, dtype=torch.int32))  # [E]
-        aux["expert_tokens"] = from_local_part(counts, x, partial=True)
-        aux["dropped_tokens"] = from_local_part(
-            torch.sum(~keep).to(torch.int32), x, partial=True)
+        y = _combine(params, cfg, x, gathered, g_l, keep, aux, top_e=e_l)
     return shard(y, "batch", "seq", "act_embed"), aux
 
 

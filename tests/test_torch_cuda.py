@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1, K2, K3) against their plain versions, on the card.
+"""The CUDA kernels (K1, K2, K3, the grouped MoE products) against their
+plain versions, on the card.
 These tests need a CUDA device and nvcc; without one they skip (decided
 inside the fixture, never at import).  Run them on the machine with the card:
 
@@ -88,6 +89,32 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(smoke):
 
 
 @pytest.mark.cuda
+def test_grouped_mlp_kernel_sweep(smoke):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = smoke.sweep_grouped_mlp(gen)
+    assert res["cases"] >= 7
+
+
+@pytest.mark.cuda
+def test_grouped_mlp_wrapper_raises_on_what_the_kernel_does_not_take(smoke):
+    from repro_torch.kernels.moe_grouped import grouped_mlp
+    x = torch.zeros((1, 64), device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros((1, 64, 64), device="cuda", dtype=torch.bfloat16)
+    idx = smoke._one_entry()
+    with pytest.raises(ValueError):                   # f32
+        grouped_mlp(x.float(), w.float(), w.float(), w.float(), *idx,
+                    top_k=1)
+    with pytest.raises(ValueError):                   # width 48
+        grouped_mlp(x[:, :48].contiguous(), w[:, :48].contiguous(),
+                    w[:, :48].contiguous(), w[:, :, :48].contiguous(), *idx,
+                    top_k=1)
+    with pytest.raises(ValueError):                   # not contiguous
+        grouped_mlp(x, w.transpose(1, 2), w, w, *idx, top_k=1)
+    with pytest.raises(ValueError):                   # int32 order
+        grouped_mlp(x, w, w, w, idx[0].int(), *idx[1:], top_k=1)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_tensors_that_require_grad(smoke):
     """On the card each kernel wrapper raises under grad mode on a tensor
     that requires grad (its output would have no grad_fn), and so does
@@ -106,7 +133,7 @@ def test_kernels_refuse_tensors_that_require_grad(smoke):
         cfg, attention_impl="chunked"), params,
         {"tokens": toks, "labels": toks})
     assert set(out) == {"flash_attention", "flash_decode", "ssd_intra",
-                        "model_loss_cuda"}
+                        "grouped_mlp", "model_loss_cuda"}
 
 
 @pytest.mark.cuda
@@ -121,7 +148,8 @@ def test_kernels_refuse_cuda_dtensors(smoke, tmp_path):
         out = smoke.kernels_refuse_dtensor(make_host_mesh())
     finally:
         dist.destroy_process_group()
-    assert set(out) == {"flash_attention", "flash_decode", "ssd_intra"}
+    assert set(out) == {"flash_attention", "flash_decode", "ssd_intra",
+                        "grouped_mlp"}
     for name, msg in out.items():
         assert name in msg and "DTensor" in msg
 
