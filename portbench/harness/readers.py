@@ -63,6 +63,8 @@ def k1_bounds(run: dict) -> List[float]:
     """One flash-attention call a layer of each prefill in the slice, over
     the prompt's causal pairs."""
     fam, c = run["family"], run["config"]
+    if not hasattr(fam, "k1_work"):
+        return []
     b = bound_s(*fam.k1_work(c, run["prompt_len"]))
     n = sum(1 for kind, _ in run.get("slice_steps", ()) if kind == "prefill")
     return [b] * (n * fam.dims(c)["L"])

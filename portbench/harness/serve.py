@@ -17,9 +17,10 @@ import time
 from typing import Dict, List
 
 import torch
+from torch.profiler import record_function
 
 from portbench.harness import program, traffic
-from portbench.harness.trace import step_label, traced_slice
+from portbench.harness.trace import traced_slice
 
 
 class OpenLoop:
@@ -41,8 +42,13 @@ class OpenLoop:
         self.flops = 0.0
         self.log = None                   # the traced slice's steps
 
+    # the loop's clock, which a test may replace: seconds since the
+    # schedule's start, and an idle wait until a time on it
     def now(self) -> float:
         return time.perf_counter() - self.base
+
+    def wait_until(self, t: float) -> None:
+        time.sleep(max(0.0, t - self.now()))
 
     def _submit_due(self, now: float) -> None:
         while (self.next < len(self.arrivals)
@@ -55,17 +61,10 @@ class OpenLoop:
             self.submitted.append(r)
             self.next += 1
 
-    def step(self, label: bool = False) -> bool:
+    def step(self) -> bool:
         """One engine iteration, booked; False when the engine was idle."""
-        prefill = bool(self.waiting) and len(self.active) < self.batch
         positions = [self.prompt_len + len(r.output) - 1 for r in self.active]
-        if label:
-            with step_label("engine.step.prefill" if prefill
-                            else "engine.step.decode"):
-                busy = self.eng.step(self.params)
-        else:
-            busy = self.eng.step(self.params)
-        if not busy:
+        if not self.eng.step(self.params):
             return False
         now = self.now()
         first = [r for r in self.waiting if r.output is not None]
@@ -81,7 +80,7 @@ class OpenLoop:
             self.log.append(("prefill", None) if first
                             else ("decode", positions))
         for r in self.eng.done[self.n_done:]:
-            r.done_s = r.finished_at - self.base
+            r.done_s = now
             self.active.remove(r)
         self.n_done = len(self.eng.done)
         return True
@@ -95,25 +94,38 @@ class OpenLoop:
             if not self.step():
                 nxt = (self.arrivals[self.next].due_s
                        if self.next < len(self.arrivals) else t_end)
-                time.sleep(max(0.0, min(nxt, t_end) - now))
+                self.wait_until(min(nxt, t_end))
 
     def run_iters(self, n: int) -> None:
-        """``n`` engine iterations on the schedule, each labelled for the
-        trace; idle waits too."""
+        """``n`` engine iterations on the schedule (the program's own
+        ``engine.prefill|decode`` spans label them in a trace); the idle
+        waits labelled ``harness.idle_wait``."""
         done = 0
         while done < n:
-            now = self.now()
-            self._submit_due(now)
-            if self.step(label=True):
+            self._submit_due(self.now())
+            if self.step():
                 done += 1
             elif self.next < len(self.arrivals):
-                with step_label("harness.idle_wait"):
-                    time.sleep(max(0.0, self.arrivals[self.next].due_s - now))
+                with record_function("harness.idle_wait"):
+                    self.wait_until(self.arrivals[self.next].due_s)
             else:
                 return
 
     def emitted(self) -> int:
         return sum(len(r.output or ()) for r in self.submitted)
+
+
+WINDOW_COUNTERS = ("serve.prefill_iters", "serve.decode_iters", "moe.entries",
+                   "moe.slots")
+
+
+def window_counters(eng) -> Dict[str, float]:
+    """The program's counters that the window's readers difference, and the
+    engine's iterations by kind."""
+    out = {name: program.counter(name) for name in WINDOW_COUNTERS}
+    out["prefills"] = eng.kinds_log.count("prefill")
+    out["decodes"] = eng.kinds_log.count("decode")
+    return out
 
 
 def run(cell, args, device: torch.device, t_start: float) -> Dict:
@@ -145,8 +157,7 @@ def run(cell, args, device: torch.device, t_start: float) -> Dict:
     t0 = loop.now()
     marks.append(time.perf_counter())
     setup_s = marks[-1] - t_start
-    it0 = (program.counter("serve.prefill_iters")
-           + program.counter("serve.decode_iters"))
+    at_open = window_counters(eng)
     e0, loop.flops = loop.emitted(), 0.0
     loop.run_until(t0 + args.seconds)
     program.sync(device)
@@ -154,8 +165,8 @@ def run(cell, args, device: torch.device, t_start: float) -> Dict:
     window_s = t1 - t0
     backlog = len(loop.waiting)
     tokens = loop.emitted() - e0
-    iters = (program.counter("serve.prefill_iters")
-             + program.counter("serve.decode_iters")) - it0
+    inside = {k: v - at_open[k] for k, v in window_counters(eng).items()}
+    iters = inside["serve.prefill_iters"] + inside["serve.decode_iters"]
     flops = loop.flops
     f0 = time.perf_counter()
     prof = eng.profile()
@@ -202,6 +213,8 @@ def run(cell, args, device: torch.device, t_start: float) -> Dict:
                 "iters": iters, "flops": flops, "trace": summary,
                 "slice_steps": slice_steps, "family": fam, "config": c,
                 "prompt_len": t["prompt_len"], "tokens": tokens,
+                "moe_entries": inside["moe.entries"],
+                "moe_slots": inside["moe.slots"],
                 "tpot_p95_ms": program.percentile(tpot, 95)},
         "checks": checks, "control": control,
         "attempted": attempted, "failed": 0,
@@ -216,6 +229,8 @@ def run(cell, args, device: torch.device, t_start: float) -> Dict:
                  "tpot_p50_p90_p95_ms": [program.percentile(tpot, q)
                                          for q in (50, 90, 95)],
                  "tokens_in_window": tokens, "window_s": window_s,
+                 "prefills_in_window": inside["prefills"],
+                 "decodes_in_window": inside["decodes"],
                  "finalize_s": finalize_s, "engine_iters": iters,
                  "compared_requests": len(sample),
                  "compared_tokens": sum(len(r.output) for r in sample),

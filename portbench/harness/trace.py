@@ -144,11 +144,6 @@ def summarize(prof, t0_ns: int, window_s: float, cuda: bool) -> dict:
     }
 
 
-def step_label(kind: str):
-    from torch.profiler import record_function
-    return record_function(kind)
-
-
 def kernels_matching(summary: Optional[dict], pattern) -> List[float]:
     """Durations (s) of the slice's device events whose name matches."""
     if not summary:

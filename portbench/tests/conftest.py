@@ -1,6 +1,8 @@
 """A small benchmark beside the real one, made of new files only: a copy of
 the benchmark's folder with small configurations, traffic mixes and limits
-added, and a BENCHMARK.json of its own that names them.  The harness runs its
+added, and a BENCHMARK.json of its own that names them.  Each small cell is
+the twin of a real cell, read from its own file under ``twins/``, so that a
+cell is added to both benchmarks by new files alone.  The harness runs its
 cells on the CPU (``--device cpu``), where the port takes its kernels' plain
 versions, in float32, so that the program and the reference agree to
 rounding."""
@@ -12,6 +14,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Dict, List
 
 import pytest
 
@@ -20,62 +23,94 @@ ROOT = BENCH.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-SMALL_CONFIGS = {
-    "olmoe-small": {
-        **json.loads((BENCH / "configs" / "olmoe-1b-7b.json").read_text()),
-        "name": "olmoe-small", "hidden_size": 64, "num_hidden_layers": 2,
-        "num_attention_heads": 4, "num_key_value_heads": 4, "head_dim": 16,
-        "intermediate_size": 32, "num_experts": 8, "num_experts_per_tok": 2,
-        "vocab_size": 256, "dtype": "float32"},
-}
-SMALL_TRAFFIC = {
-    "chat-small": {"kind": "serve", "why": "small", "program":
-                   {"attention_impl": "cuda"}, "batch": 4, "max_seq": 48,
-                   "prompt_len": 16,
-                   "output": {"dist": "lognormal", "median": 4, "sigma": 0.8,
-                              "lo": 2, "hi": 12},
-                   "rate_per_s": 40.0, "schedule_seed": 1, "pool": 64,
-                   "preroll_s": 0.3, "trace_iters": 6, "check_requests": 3},
-    "longprompt-small": {"kind": "serve", "why": "small", "program":
-                         {"attention_impl": "cuda"}, "batch": 3,
-                         "max_seq": 48, "prompt_len": 32,
-                         "output": {"dist": "uniform", "lo": 2, "hi": 6},
-                         "rate_per_s": 40.0, "schedule_seed": 2, "pool": 64,
-                         "preroll_s": 0.3, "trace_iters": 6,
-                         "check_requests": 3},
-}
-SERVE_LIMITS = {"served_gap": 1e-3, "profile_steps_missing": 0}
-# (small cell, configuration, mix, the real cell whose metrics it reports)
-SMALL_CELLS = [("olmoe-small.chat", "olmoe-small", "chat-small",
-                "olmoe-1b-7b.chat"),
-               ("olmoe-small.longprompt", "olmoe-small", "longprompt-small",
-                "olmoe-1b-7b.longprompt")]
+TWINS_DIR = BENCH / "tests" / "twins"
 
 
-def make_small_bench(where: Path) -> Path:
-    """The small benchmark under ``where``; returns its BENCHMARK.json."""
+def load_twins(twins_dir: Path = TWINS_DIR) -> List[dict]:
+    """The small twins, one file a small cell (``<small cell>.json``): the
+    real cell it stands for (``twin_of``), its small configuration
+    (``config``, the name of a file under ``configs/`` there), its mix
+    (``mix``, named after the small cell) and its ``limits``."""
+    return [dict(json.loads(p.read_text()), cell=p.stem)
+            for p in sorted(twins_dir.glob("*.json"))]
+
+
+def load_small_configs(twins_dir: Path = TWINS_DIR) -> Dict[str, dict]:
+    """The small configurations, one file each (``configs/<name>.json``):
+    the real configuration it is cut from (``of``) and the keys it changes
+    (``overrides``)."""
+    return {p.stem: json.loads(p.read_text())
+            for p in sorted((twins_dir / "configs").glob("*.json"))}
+
+
+def twin_errors(twins: List[dict], bench: dict,
+                small_configs: Dict[str, dict]) -> List[str]:
+    """What is wrong with the twins against ``bench`` (a BENCHMARK.json's
+    data): a twin of no real cell, or of a small configuration with no
+    file."""
+    cells = {w["name"] for w in bench["workloads"]}
+    return ([f"{t['cell']}: twin_of {t['twin_of']!r} is no cell"
+             for t in twins if t["twin_of"] not in cells]
+            + [f"{t['cell']}: config {t['config']!r} has no file"
+               for t in twins if t["config"] not in small_configs])
+
+
+def small_benchmark(twins: List[dict], small_configs: Dict[str, dict],
+                    bench: dict, root: Path):
+    """(configurations, mixes, cells) of the twins: each configuration the
+    real configuration's file under ``root`` with the small one's
+    overrides; each mix named after its small cell; each cell (small cell,
+    configuration, mix, the real cell whose metrics it reports).  A twin
+    that ``twin_errors`` finds at fault is left out."""
+    cells = {w["name"] for w in bench["workloads"]}
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    configs, mixes, small = {}, {}, []
+    for t in twins:
+        if t["twin_of"] not in cells or t["config"] not in small_configs:
+            continue
+        c = small_configs[t["config"]]
+        real = json.loads((root / files[c["of"]]).read_text())
+        configs[t["config"]] = {**real, "name": t["config"], **c["overrides"]}
+        mixes[t["cell"]] = t["mix"]
+        small.append((t["cell"], t["config"], t["cell"], t["twin_of"]))
+    return configs, mixes, small
+
+
+TWINS, TWIN_CONFIGS = load_twins(), load_small_configs()
+SMALL_CONFIGS, SMALL_TRAFFIC, SMALL_CELLS = small_benchmark(
+    TWINS, TWIN_CONFIGS, json.loads((ROOT / "BENCHMARK.json").read_text()),
+    ROOT)
+
+
+def make_small_bench(where: Path, root: Path = ROOT) -> Path:
+    """The small benchmark under ``where``, made from the benchmark of the
+    checkout ``root`` and its twins; returns its BENCHMARK.json."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    twins_dir = root / "portbench" / "tests" / "twins"
+    twins = load_twins(twins_dir)
+    configs, mixes, cells = small_benchmark(
+        twins, load_small_configs(twins_dir), bench, root)
+    limits = {t["cell"]: t["limits"] for t in twins}
     data = where / "portbench"
-    shutil.copytree(BENCH, data, ignore=shutil.ignore_patterns(
+    shutil.copytree(root / "portbench", data, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
-    for name, c in SMALL_CONFIGS.items():
+    for name, c in configs.items():
         (data / "configs" / f"{name}.json").write_text(json.dumps(c))
-    for name, t in SMALL_TRAFFIC.items():
+    for name, t in mixes.items():
         (data / "traffic" / f"{name}.json").write_text(json.dumps(t))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     bench["configs"] = [{"name": n, "source": "https://example.org/" + n,
                          "file": f"portbench/configs/{n}.json", "reduced": [],
-                         "why": "small"} for n in SMALL_CONFIGS]
+                         "why": "small"} for n in configs]
     bench["workloads"] = []
-    for cell, config, mix, _ in SMALL_CELLS:
+    for cell, config, mix, _ in cells:
         bench["workloads"].append({"name": cell, "config": config,
                                    "traffic": mix, "chips": 1, "why": "small"})
         (data / "checks" / f"{cell}.json").write_text(
-            json.dumps(SERVE_LIMITS))
+            json.dumps(limits[cell]))
     # each small cell reports the metrics of its real twin
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [c[0] for c in SMALL_CELLS
-                              if c[3] in m["workloads"]]
+            m["workloads"] = [c[0] for c in cells if c[3] in m["workloads"]]
     path = where / "BENCHMARK.json"
     path.write_text(json.dumps(bench, indent=1))
     return path

@@ -86,3 +86,46 @@ def test_a_metric_added_as_a_file_is_read(small_bench, tmp_path):
                             trace=1)
     assert rc == 0, err[-3000:]
     assert out["metrics"]["engine.iters.serve"]["value"] > 0
+
+
+def noted(err, what):
+    """The value that the run's stderr note ``what`` gave."""
+    line = next(x for x in err.splitlines() if x.startswith(what + ": "))
+    return json.loads(line[len(what) + 2:])
+
+
+@pytest.mark.parametrize("cell", SERVE)
+def test_the_slot_fill_counts_the_window_alone(small_bench, cell):
+    """The window's differences of ``moe.entries`` and ``moe.slots`` are the
+    shape arithmetic of the iterations in it: on the CPU's buffer path, a
+    prefill routes its prompt over every expert's capacity, a decode step
+    each row over every expert's 8 rows."""
+    from portbench.reference.olmoe import capacity, dims
+    from conftest import SMALL_CELLS, SMALL_CONFIGS, SMALL_TRAFFIC
+    _, config, mix, _ = next(c for c in SMALL_CELLS if c[0] == cell)
+    c, t = SMALL_CONFIGS[config], SMALL_TRAFFIC[mix]
+    m = dims(c)
+    rc, out, err = run_cell(small_bench, cell)
+    assert rc == 0, err[-3000:]
+    run, inputs = noted(err, "run"), noted(err, "per-layer inputs (host clock)")
+    p, d = run["prefills_in_window"], run["decodes_in_window"]
+    assert p + d == inputs["iters"] > 0
+    assert inputs["moe_entries"] == m["L"] * m["k"] * (
+        p * t["prompt_len"] + d * t["batch"])
+    assert inputs["moe_slots"] == m["L"] * m["E"] * (
+        p * capacity(t["prompt_len"], c) + d * t["batch"] * capacity(1, c))
+
+
+def test_a_family_without_a_kernel_has_no_roofline():
+    """A family module without ``k1_work`` or ``k2_work`` gives no bounds,
+    and the roofline reader then returns nothing."""
+    import re
+    import types
+    from portbench.harness.readers import k1_bounds, k2_bounds, roofline
+    from portbench.reference import olmoe
+    fam = types.SimpleNamespace(dims=olmoe.dims)
+    run = {"family": fam, "config": {}, "prompt_len": 8,
+           "slice_steps": [("prefill", None), ("decode", [8, 9])],
+           "trace": {"kernels": [("flash_attention_kernel", 1e-3)]}}
+    assert k1_bounds(run) == [] and k2_bounds(run) == []
+    assert roofline(run, re.compile("flash_attention"), k1_bounds(run)) is None

@@ -1,6 +1,8 @@
 """BENCHMARK.json against the benchmark's rules, every file it names
 found by name, and the harness's refusals: no card, a bare directory, and
-JAX or the JAX package loaded."""
+JAX or the JAX package loaded.  Each rule is a ``check_*`` function of a
+benchmark's data and its checkout, so that a benchmark grown by new files
+can be held to the same rules."""
 import ast
 import json
 import re
@@ -18,60 +20,62 @@ WIDTH = re.compile(r"(hidden|intermediate|latent|state|proj).*size|_dim$|"
 JAX_NAMES = {"jax", "jaxlib", "flax", "repro"}
 
 
-def test_top_level_keys_and_command():
-    assert list(B) == ["command", "paths", "run_seconds", "configs",
+def check_top_level_keys_and_command(b, root):
+    assert list(b) == ["command", "paths", "run_seconds", "configs",
                        "workloads", "end_to_end", "per_layer"]
-    assert B["command"] == ["python3", "portbench/run.py"]
-    assert B["paths"] == ["portbench"]
-    assert isinstance(B["run_seconds"], int) and 1 <= B["run_seconds"] <= 51
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert b["command"] == ["python3", "portbench/run.py"]
+    assert b["paths"] == ["portbench"]
+    assert isinstance(b["run_seconds"], int) and 1 <= b["run_seconds"] <= 51
+    assert len((root / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
-def test_names_units_and_lines():
+def check_names_units_and_lines(b, root):
     for group in ("configs", "workloads", "end_to_end", "per_layer"):
-        names = [x["name"] for x in B[group]]
+        names = [x["name"] for x in b[group]]
         assert len(set(names)) == len(names)
         assert all(NAME.match(n) for n in names)
-    for m in B["end_to_end"] + B["per_layer"]:
+    for m in b["end_to_end"] + b["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for x in B["configs"] + B["workloads"]:
+    for x in b["configs"] + b["workloads"]:
         assert 1 <= len(x["why"]) <= 200 and "\n" not in x["why"]
 
 
-def test_configs_and_cells():
-    configs = {c["name"]: c for c in B["configs"]}
-    used = {w["config"] for w in B["workloads"]}
+def check_configs_and_cells(b, root):
+    bench = root / "portbench"
+    configs = {c["name"]: c for c in b["configs"]}
+    used = {w["config"] for w in b["workloads"]}
     assert used == set(configs)
     for c in configs.values():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["file"].startswith("portbench/")
-        data = json.loads((ROOT / c["file"]).read_text())
+        data = json.loads((root / c["file"]).read_text())
         assert data["name"] == c["name"]
         assert not any(WIDTH.search(k) for k in c["reduced"])
         assert set(c["reduced"]) == set(data.get("changed_from_source", {}))
-    pairs = {(w["config"], w["traffic"]) for w in B["workloads"]}
-    assert len(pairs) == len(B["workloads"])
-    assert all(w["chips"] in (1, 4) for w in B["workloads"])
-    for w in B["workloads"]:
+    pairs = {(w["config"], w["traffic"]) for w in b["workloads"]}
+    assert len(pairs) == len(b["workloads"])
+    assert all(w["chips"] in (1, 4) for w in b["workloads"])
+    for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
-        assert (BENCH / "checks" / f"{w['name']}.json").is_file()
+        assert (bench / "traffic" / f"{w['traffic']}.json").is_file()
+        assert (bench / "checks" / f"{w['name']}.json").is_file()
 
 
-def test_metrics_and_their_cells():
-    cells = {w["name"] for w in B["workloads"]}
-    e2e = {m["name"]: m for m in B["end_to_end"]}
+def check_metrics_and_their_cells(b, root):
+    bench = root / "portbench"
+    cells = {w["name"] for w in b["workloads"]}
+    e2e = {m["name"]: m for m in b["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
-    for m in B["end_to_end"]:
+    for m in b["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
         assert set(m["workloads"]) <= cells if "workloads" in m else True
 
     def reports(cell, m):
         return cell in m.get("workloads", cells)
-    for m in B["per_layer"]:
+    for m in b["per_layer"]:
         assert m["moves"] in e2e
-        assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+        assert (bench / "metrics" / f"{m['name']}.py").is_file()
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
         for cell in m.get("workloads", cells):
@@ -79,25 +83,50 @@ def test_metrics_and_their_cells():
         if m["name"].endswith("_roofline") or "mfu" in m["name"]:
             assert m["unit"] == "%"
     for cell in cells:
-        own = [m for m in B["end_to_end"] if reports(cell, m)]
+        own = [m for m in b["end_to_end"] if reports(cell, m)]
         assert len(own) >= 2
-        assert any(reports(cell, m) for m in B["per_layer"])
+        assert any(reports(cell, m) for m in b["per_layer"])
     layers = {}
-    for m in B["per_layer"]:
+    for m in b["per_layer"]:
         layers.setdefault(m["layer"], set()).add(m["name"])
     assert all("\n" not in k for k in layers)
 
 
-def test_every_check_has_a_limit_and_every_roofline_a_mfu_beside_it():
-    for w in B["workloads"]:
-        limits = json.loads((BENCH / "checks" / f"{w['name']}.json")
-                            .read_text())
+def check_limits_and_mfu(b, root):
+    for w in b["workloads"]:
+        limits = json.loads((root / "portbench" / "checks" /
+                             f"{w['name']}.json").read_text())
         assert all(isinstance(v, (int, float)) and v >= 0
                    for v in limits.values())
-    for m in B["per_layer"]:
+    for m in b["per_layer"]:
         if m["name"].endswith("_roofline"):
             assert any("mfu" in x["name"] and x["moves"] == m["moves"]
-                       for x in B["per_layer"])
+                       for x in b["per_layer"])
+
+
+CHECKS = [check_top_level_keys_and_command, check_names_units_and_lines,
+          check_configs_and_cells, check_metrics_and_their_cells,
+          check_limits_and_mfu]
+
+
+def test_top_level_keys_and_command():
+    check_top_level_keys_and_command(B, ROOT)
+
+
+def test_names_units_and_lines():
+    check_names_units_and_lines(B, ROOT)
+
+
+def test_configs_and_cells():
+    check_configs_and_cells(B, ROOT)
+
+
+def test_metrics_and_their_cells():
+    check_metrics_and_their_cells(B, ROOT)
+
+
+def test_every_check_has_a_limit_and_every_roofline_a_mfu_beside_it():
+    check_limits_and_mfu(B, ROOT)
 
 
 def imported_top_names(path):
