@@ -4,13 +4,17 @@
     python3 chip_smoke.py            # every phase; needs one card
 
 Builds the CUDA kernels (K1 flash attention, K2 flash decode, K3 SSD
-intra-chunk, the grouped MoE products of a decode step) from the sources in
-this checkout, holds each kernel against its plain PyTorch version on the card
+intra-chunk, the grouped MoE products of a decode step, latent attention's
+absorbed decode) from the sources in this checkout, holds each kernel against
+its plain PyTorch version on the card
 (a sweep of small shapes and the serving paths' full-width shapes, timed;
 gemma3-4b's at a windowed and at a global layer; the grouped MoE kernel at
 the benchmark's decode rows, 256 and 96, and at the path's batch, beside the
 whole MoE layer on the buffer path it replaces, and an engine decode step at
-256 rows held to one synchronising call), then serves 16 requests on each of twelve paths in turn (bf16, random
+256 rows held to one synchronising call; deepseek-v2-lite's latent decode
+and K1 at qk 192 / v 128 at its path's shapes and at its benchmark cell's, 56
+rows of 16.4k to 18.4k keys and a 16k prefill), then serves 16 requests on
+each of thirteen paths in turn (bf16, random
 weights from seed 0) through the port's ``ServeEngine``: qwen3-1.7b, the same
 with int8 weights (quantized from its weights) and an int8 KV cache
 (``qwen3-1.7b/int8``), the same with int4 weights (random nibbles from seed
@@ -23,11 +27,14 @@ same prefill with every window removed must move the logits past the path's
 limit), qwen2.5-14b at full depth (48 layers, QKV bias),
 llama4-scout-17b-a16e with 4 of its 48 layers (top-1 routing and a shared
 expert) and mistral-large-123b with 4 of its 88 layers (a GQA group of 12:
-K2's two head blocks); each cut is named in the path's ``reduced``. For each
+K2's two head blocks) and deepseek-v2-lite whole (27 layers of latent
+attention, the first a dense MLP, the rest 64 routed and 2 shared experts);
+each cut is named in the path's ``reduced``. For each
 path it checks by the launch counters that every prefill went through the
 kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and every
-decode step through K2 per attention layer (and the grouped MoE kernel per
-MoE layer), holds the kernel path against the
+decode step through K2 per attention layer, or the latent decode per latent
+attention layer (and the grouped MoE kernel per MoE layer), holds the kernel
+path against the
 plain path on the card (in bf16 and in f32 activations; for MoE with the
 share of routing decisions that differ, the plain path's experts on their
 buffers, and the plain path with the grouped kernel beside it), and builds
@@ -160,7 +167,8 @@ MOE_F32_REL_TOL = 3e-2
 PATH_F32_REL_TOL = {"dense": 1e-4, "ssm": 6e-2, "hybrid": 6e-2,
                     "moe": MOE_F32_REL_TOL, "encdec": 1e-4, "vlm": 1e-4}
 
-KERNELS = ("flash_attention", "flash_decode", "ssd_intra", "grouped_mlp")
+KERNELS = ("flash_attention", "flash_decode", "ssd_intra", "grouped_mlp",
+           "mla_decode")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:77",
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
@@ -168,12 +176,16 @@ REPLACES = {
     # added for the MoE decode step; the reference's experts are XLA
     # einsums over capacity buffers
     "grouped_mlp": None,
+    # added for latent attention's decode step; the reference has no latent
+    # attention
+    "mla_decode": None,
 }
 SOURCES = {       # the kernel that the bf16 timings measure
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "ssd_intra": "src/repro_torch/kernels/csrc/ssd_tc.cu",
     "grouped_mlp": "src/repro_torch/kernels/csrc/moe_grouped.cu",
+    "mla_decode": "src/repro_torch/kernels/csrc/mla_decode.cu",
 }
 SOURCES_ALL = {**{k: [v] for k, v in SOURCES.items()},
                "flash_attention": [   # entry point and the f32 kernel, bf16
@@ -970,25 +982,249 @@ def grouped_decode_syncs(cfg, rows: int, steps: int = 3) -> dict:
         launches.append(grouped_mlp.launches - before)
     assert eng.kinds_log[-steps:] == ["decode"] * steps, eng.kinds_log
     assert all(len(s) == 1 for s in syncs), syncs
-    assert launches == [cfg.n_layers] * steps, launches
+    assert launches == [grouped_layers(cfg)] * steps, launches
     del eng, params
     return {"arch": cfg.name, "rows": rows, "steps": steps,
             "syncs_per_step": [len(s) for s in syncs], "sync": syncs[0][0],
             "grouped_launches_per_step": launches, "step_ms": step_ms}
 
 
+# The benchmark cell deepseek-v2-lite.longdoc's shapes
+# (portbench/traffic/longdoc.json): 56 rows over caches of 18 432 positions,
+# prompts of 16 384 tokens
+LONGDOC = dict(rows=56, max_seq=18432, prompt_len=16384)
+# K1 at latent attention's widths is held against its plain version whole up
+# to this length; beyond it the plain scores (16 heads x S x S in f32: 17 GB
+# at 16k) do not fit beside the rest, so blocks of query rows are held
+# against the quadratic softmax (`attend_reference`, f32) over their keys,
+# and the plain time is the port's streaming plain path's
+# (`attend_chunked`, blocks of 1024, skipping masked blocks)
+K1_PLAIN_WHOLE = 4096
+K1_CHECK_ROWS = 1024
+
+
+def full_width_latent_k1(gen, cfg, s: int) -> dict:
+    """K1 at latent attention's expanded prefill, qk 192 / v 128 at the
+    model's scale, causal over ``s`` tokens (one row): against its plain
+    version (see `K1_PLAIN_WHOLE`), timed beside the plain version and one
+    library call (`is_causal`), with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_plan,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models import attention as A
+    from repro_torch.models.mla import softmax_scale
+    dtype = torch.bfloat16
+    scale = softmax_scale(cfg)
+    m, h = cfg.mla, cfg.attn.n_heads
+    dqk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    q, k = (_randn(gen, (1, s, h, dqk), dtype) for _ in range(2))
+    v = _randn(gen, (1, s, h, dv), dtype)
+    got = flash_attention(q, k, v, group=1, scale=scale)
+    worst: dict = {}
+    pos = torch.arange(s, device="cuda")[None]
+    layout = A.HeadLayout.make(cfg.attn, 1)
+    if s <= K1_PLAIN_WHOLE:
+        want = flash_attention_plain(q, k, v, group=1, scale=scale)
+        _check("flash_attention", got, want, dtype, ("latent", s), worst)
+        del want
+        checked = "whole"
+
+        def plain():
+            return flash_attention_plain(q, k, v, group=1, scale=scale)
+        plain_call = "flash_attention_plain"
+    else:
+        starts = sorted({0, (s // 2) // K1_CHECK_ROWS * K1_CHECK_ROWS,
+                         s - K1_CHECK_ROWS})
+        for a in starts:
+            rows = slice(a, a + K1_CHECK_ROWS)
+            want = A.attend_reference(
+                q[:, rows].float(), k[:, :rows.stop].float(),
+                v[:, :rows.stop].float(), pos[:, rows], pos[:, :rows.stop],
+                layout, causal=True, window=-1, scale=scale)
+            _check("flash_attention", got[:, rows], want, dtype,
+                   ("latent", s, a), worst)
+            del want
+        checked = [[a, a + K1_CHECK_ROWS] for a in starts]
+
+        def plain():
+            return A.attend_chunked(q, k, v, pos, pos, layout, causal=True,
+                                    window=-1, causal_skip=True, scale=scale)
+        plain_call = "attend_chunked (blocks of 1024, causal skip)"
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def lib_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale)
+    lib = lib_call().transpose(1, 2)
+    lib_err = (lib.float() - got.float()).abs().max().item()
+    del got, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: flash_attention(q, k, v, group=1, scale=scale))
+    plain_ms = time_ms(plain, warmup=1, reps=3, inner=2)
+    library_ms = time_ms(lib_call)
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + s * h * dv)
+    flops = 2.0 * h * (s * (s + 1) / 2) * (dqk + dv)
+    bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    plan = attention_plan(1, s, h, dqk, dtype, dv)
+    return {"shape": {"B": 1, "S": s, "H": h, "KV": h, "hd": dqk, "dv": dv,
+                      "scale": scale, "dtype": "bfloat16", "causal": True},
+            "checked_rows": checked, "plain_call": plain_call,
+            "library_call": "is_causal",
+            "plan": {"bq": plan.bq, "bk": plan.bk, "warps": plan.warps,
+                     "kv_warps": plan.kv_warps, "blocks": plan.blocks,
+                     "smem_bytes": plan.smem_bytes},
+            "max_abs_err": worst["bfloat16"], "limit": TOL[dtype],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err_vs_kernel": lib_err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": n_bytes, "flops": flops}
+
+
+def _mla_inputs(gen, cfg, b, s, lens):
+    h, r = cfg.attn.n_heads, cfg.mla.kv_lora_rank
+    d = r + cfg.mla.qk_rope_head_dim
+    return (_randn(gen, (b, h, d), torch.bfloat16),
+            _randn(gen, (b, s, d), torch.bfloat16),
+            torch.tensor(lens, device="cuda", dtype=torch.int32))
+
+
+def sweep_mla_decode(gen) -> dict:
+    """The latent-decode kernel against its plain version over small shapes
+    at deepseek-v2-lite's widths (16 and 32 heads of 576, out 512): one key,
+    a tile's edge, a row past the cache, split keys merged."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as MD
+    from repro_torch.models.mla import softmax_scale
+    cfg = get_config("deepseek-v2-lite")
+    scale = softmax_scale(cfg)
+    worst: dict = {}
+    cases = ((1, 16, 64, [1]), (3, 16, 200, [64, 65, 200]),
+             (4, 32, 1000, [999, 1, 300, 1500]),
+             (8, 16, 4096, [4096 - 37 * i for i in range(8)]))
+    for b, h, s, lens in cases:
+        c = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                              n_heads=h))
+        q, cache, lengths = _mla_inputs(gen, c, b, s, lens)
+        want = MD.mla_decode_plain(q, cache, lengths, scale=scale)
+        _check("mla_decode", MD.mla_decode(q, cache, lengths, scale=scale),
+               want, torch.bfloat16, ("sweep", b, h, s), worst)
+        for n in (1, 3):
+            chunk = -(-s // n // MD.KEY_TILE) * MD.KEY_TILE
+            _check("mla_decode", MD.launch_with_split(
+                q, cache, lengths, scale=scale, n_splits=-(-s // chunk),
+                chunk=chunk), want, torch.bfloat16, ("sweep", b, h, s, n),
+                worst)
+    return {"cases": len(cases), "max_abs_err": worst}
+
+
+def full_width_mla_decode(gen, cfg, b: int, s: int, lens) -> dict:
+    """The latent-decode kernel at ``b`` rows of lengths ``lens`` over a
+    cache of ``s`` (one layer's; at the long-document cell's shape 1.19 GB,
+    so no launch finds its rows in L2), against its plain version, timed
+    beside the plain version and one library call
+    (`F.scaled_dot_product_attention` over one head whose 16 query rows are
+    the row's heads, the latent its keys and values, the lengths a boolean
+    mask), with
+    its bound: the rows' keys, the queries and the outputs, each once, or
+    the two products over the keys.  The split plan's choice, and 4, 16 and
+    32 splits beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_decode as MD
+    from repro_torch.models.mla import softmax_scale
+    dtype = torch.bfloat16
+    scale = softmax_scale(cfg)
+    r = cfg.mla.kv_lora_rank
+    q, cache, lengths = _mla_inputs(gen, cfg, b, s, lens)
+    _, h, d = q.shape
+    worst: dict = {}
+    want = MD.mla_decode_plain(q, cache, lengths, scale=scale)
+    _check("mla_decode", MD.mla_decode(q, cache, lengths, scale=scale), want,
+           dtype, ("timed", b, s), worst)
+    rel = worst["bfloat16"] / want.float().abs().max().item()
+    keys = [min(x, s) for x in lens]
+    mask = (torch.arange(s, device="cuda")[None]
+            < torch.tensor(keys, device="cuda")[:, None])[:, None, None]
+    qt, kt, vt = q[:, None], cache[:, None], cache[:, None, :, :r]
+
+    def lib_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=scale)
+    lib_err = (lib_call()[:, 0].float() - want.float()).abs().max().item()
+    del want
+    n_splits, chunk = MD.split_plan(b, h, s)
+    ms = time_ms(lambda: MD.mla_decode(q, cache, lengths, scale=scale))
+    by_splits = {}
+    for n in (4, 16, 32):
+        c = -(-s // n // MD.KEY_TILE) * MD.KEY_TILE
+        by_splits[-(-s // c)] = time_ms(lambda: MD.launch_with_split(
+            q, cache, lengths, scale=scale, n_splits=-(-s // c), chunk=c))
+    plain_ms = time_ms(lambda: MD.mla_decode_plain(q, cache, lengths,
+                                                   scale=scale),
+                       warmup=1, reps=3, inner=2)
+    library_ms = time_ms(lib_call, warmup=1, reps=3, inner=2)
+    n_keys = sum(keys)
+    n_bytes = 2 * (q.numel() + n_keys * d + b * h * r) + 4 * b
+    flops = 2.0 * h * n_keys * (d + r)
+    bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    return {"shape": {"B": b, "S": s, "H": h, "d": d, "out": r,
+                      "lengths": [min(lens), max(lens)], "keys": n_keys,
+                      "scale": scale, "dtype": "bfloat16"},
+            "plan": {"n_splits": n_splits, "chunk": chunk},
+            "ms_by_splits": by_splits,
+            "library_call": "one head, the heads as query rows, the "
+                            "lengths as a boolean mask",
+            "max_abs_err": worst["bfloat16"], "max_rel_err": rel,
+            "limit": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": n_bytes, "flops": flops}
+
+
+def latent_attention_shapes(gen, path, cfg, batch, max_seq,
+                            prefill_len) -> dict:
+    """Latent attention's two kernels at the path's shapes (K1 over its
+    prefill; the latent decode at its batch, lengths as
+    `full_width_flash_decode` gives them) and at the long-document cell's
+    (`LONGDOC`: K1 over a 16k prompt; the latent decode at 56 rows whose
+    lengths run evenly from the prompt's end to the cache's)."""
+    lens = [prefill_len + 1 + 9 * i for i in range(batch)]
+    lens[-1] = max_seq + 5
+    if batch > 2:
+        lens[-2] = max_seq - 1
+    b, s, p = LONGDOC["rows"], LONGDOC["max_seq"], LONGDOC["prompt_len"]
+    cell = [p + 1 + (s - p - 1) * i // (b - 1) for i in range(b)]
+    out = {"flash_attention": [], "mla_decode": []}
+    for label, n in ((path, prefill_len), (f"{path}, longdoc cell", p)):
+        out["flash_attention"].append(dict(
+            arch=label, **full_width_latent_k1(gen, cfg, n)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, args in ((path, (batch, max_seq, lens)),
+                        (f"{path}, longdoc cell", (b, s, cell))):
+        out["mla_decode"].append(dict(
+            arch=label, **full_width_mla_decode(gen, cfg, *args)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(paths, batch) -> dict:
     """Every kernel over its sweep, then at the full-width shapes that the
     serving paths give it, each timed (the enc-dec path's K1 at its encoder
     shape too; a quantized path takes its base path's shapes, K2 reading
-    the dequantized bf16 cache), and the attention kernels at one long shape
-    each (at the first dense path's widths)."""
+    the dequantized bf16 cache; a latent attention path's K1 at qk 192 / v
+    128 and its latent decode, at the path's shapes and the long-document
+    cell's, `latent_attention_shapes`), and the attention kernels at one
+    long shape each (at the first dense path's widths)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {name: {"full_width": []} for name in KERNELS}
     out["flash_attention"]["sweep"] = sweep_flash_attention(gen)
     out["flash_decode"]["sweep"] = sweep_flash_decode(gen)
     out["ssd_intra"]["sweep"] = sweep_ssd(gen)
     out["grouped_mlp"]["sweep"] = sweep_grouped_mlp(gen)
+    out["mla_decode"]["sweep"] = sweep_mla_decode(gen)
     for path, cfg, prefill_len, max_seq in paths:
         if "/" in path:                 # a variant: its base path's shapes
             continue
@@ -1001,6 +1237,11 @@ def phase_kernels(paths, batch) -> dict:
         # global layers) is timed at each, over that many stacked layers
         wins = cfg.layer_windows()
         kinds = sorted(set(wins)) if len(set(wins)) > 1 else [-1]
+        if cfg.mla is not None:
+            for name, rows in latent_attention_shapes(
+                    gen, path, cfg, batch, max_seq, prefill_len).items():
+                out[name]["full_width"] += rows
+            kinds = []
         for w in (kinds if n_attn else []):
             label, layers = path, n_attn
             if len(kinds) > 1:
@@ -1017,7 +1258,8 @@ def phase_kernels(paths, batch) -> dict:
             out["ssd_intra"]["full_width"].append(
                 full_width_ssd(gen, cfg, prefill_len))
         if grouped_layers(cfg):
-            for rows in MOE_DECODE_ROWS + (batch,):
+            for rows in ((LONGDOC["rows"], batch) if cfg.mla is not None
+                         else MOE_DECODE_ROWS + (batch,)):
                 out["grouped_mlp"]["full_width"].append(
                     full_width_grouped_mlp(gen, cfg, rows))
                 gc.collect()
@@ -1045,7 +1287,9 @@ def phase_plans(paths, batch) -> None:
     each SSM path's prefill shape, K3 with every head group its head_dim
     allows, each with and without pairing t tiles; each held against the
     plain version and timed as in the `kernels` phase (K2 over the stacked
-    layers); the plans' own choices are named."""
+    layers); the plans' own choices are named.  A latent attention path has
+    no K2 and its own split plan: the `kernels` phase times the latent
+    decode at 4 to 32 splits."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import build
@@ -1056,7 +1300,7 @@ def phase_plans(paths, batch) -> None:
         if cfg.family in ("ssm", "hybrid"):
             emit("plans", arch=path, ssd_intra=plans_ssd(gen, cfg,
                                                          prefill_len))
-        if not n_attention_layers(cfg) or "/" in path:
+        if not n_attention_layers(cfg) or "/" in path or cfg.mla is not None:
             continue
         a = cfg.attn
         h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
@@ -1136,10 +1380,12 @@ def plans_ssd(gen, cfg, prefill_len: int) -> dict:
 def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "ssd_intra": ssd_intra, "grouped_mlp": grouped_mlp}
+            "ssd_intra": ssd_intra, "grouped_mlp": grouped_mlp,
+            "mla_decode": mla_decode}
 
 
 def reset_counters() -> None:
@@ -1162,29 +1408,33 @@ def n_attention_layers(cfg) -> int:
 
 def grouped_layers(cfg) -> int:
     """The MoE layers whose decode step takes the grouped kernel
-    (`models.moe.grouped_route`): every layer of a MoE configuration the
-    kernel computes in its compute dtype, else none."""
+    (`models.moe.grouped_route`): every MoE layer (those after the leading
+    dense ones) of a MoE configuration the kernel computes in its compute
+    dtype, else none."""
     from repro_torch.configs.base import dtype_of
     from repro_torch.kernels.moe_grouped import takes
     if cfg.family != "moe" or not takes(cfg.glu, cfg.act,
                                         dtype_of(cfg.compute_dtype),
                                         cfg.d_model, cfg.moe.d_expert):
         return 0
-    return cfg.n_layers
+    return cfg.n_layers - cfg.n_dense_layers
 
 
 def expected_launches(cfg, prefills: int, decodes: int) -> dict:
     """Launches of each kernel on a serving run: K1 per attention layer of a
     prefill (the enc-dec family's encoder layers, non-causal, included), K2
-    per attention layer of a decode step, K3 per Mamba2 layer of a
-    prefill, the grouped MoE kernel per MoE layer of a decode step."""
+    per attention layer of a decode step, or with latent attention the
+    latent decode, K3 per Mamba2 layer of a prefill, the grouped MoE kernel
+    per MoE layer of a decode step."""
     n_attn = n_attention_layers(cfg)
     n_enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
     n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_latent = n_attn if cfg.mla is not None else 0
     return {"flash_attention": prefills * (n_enc + n_attn),
-            "flash_decode": decodes * n_attn,
+            "flash_decode": decodes * (n_attn - n_latent),
             "ssd_intra": prefills * n_ssm,
-            "grouped_mlp": decodes * grouped_layers(cfg)}
+            "grouped_mlp": decodes * grouped_layers(cfg),
+            "mla_decode": decodes * n_latent}
 
 
 def serve_params(cfg, given):
@@ -1411,11 +1661,19 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
     # a path the plain model with the route open (`plain_grouped`) is run
     # too, and its difference from the plain path (the grouped kernel alone,
     # through the whole model) is reported beside the others.
+    #
+    # Latent attention's kernels take bf16 alone (the latent decode; K1 with
+    # v narrower than qk), so a latent attention path has no f32 kernel run:
+    # its whole-model differences are reported, and it is held one layer
+    # deep in bf16, the prefill's attention block through K1 and a decode
+    # step's latent attention through the latent decode, each against its
+    # plain version (`first_latent_decode_vs_plain`).
     models = {"kernel": model, "plain": build_model(ref_cfg),
               "f32": build_model(dataclasses.replace(
-                  ref_cfg, compute_dtype="float32")),
-              "kernel_f32": build_model(dataclasses.replace(
-                  cfg, compute_dtype="float32"))}
+                  ref_cfg, compute_dtype="float32"))}
+    if cfg.mla is None:
+        models["kernel_f32"] = build_model(dataclasses.replace(
+            cfg, compute_dtype="float32"))
     if grouped_layers(cfg):
         models["plain_grouped"] = build_model(ref_cfg)
     batch_in = path_inputs(cfg, requests()[0].prompt)
@@ -1432,13 +1690,14 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
         assert math.isfinite(e["kernel_vs_plain"]), (what, e)
         if cfg.family == "moe":
             e["bf16_held"] = False
+            ran = {pair: ab for pair, ab in PAIRS.items() if pair in e}
             e["routing_differs"] = {
                 pair: routing_differs(routes[a][what], routes[b][what])
-                for pair, (a, b) in PAIRS.items()}
+                for pair, (a, b) in ran.items()}
             e["routing_differs_by_layer"] = {
                 pair: routing_differs(routes[a][what], routes[b][what],
                                       by_layer=True)
-                for pair, (a, b) in PAIRS.items()}
+                for pair, (a, b) in ran.items()}
             if "plain_grouped" in logits:
                 e["plain_grouped_vs_plain"] = (
                     logits["plain_grouped"][what]
@@ -1449,10 +1708,11 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
         else:
             assert e["kernel_vs_plain"] <= e["limit"], (what, e)
             assert e["kernel_vs_f32"] <= 1.25 * e["plain_vs_f32"], (what, e)
-        assert math.isfinite(e["f32_kernel_vs_plain"]), (what, e)
-        assert e["f32_kernel_vs_plain"] <= e["f32_limit"], (what, e)
-        # the bf16 control: bf16 activations alone fail the f32 limit
-        assert e["plain_vs_f32"] > e["f32_limit"], (what, e)
+        if "kernel_f32" in logits:
+            assert math.isfinite(e["f32_kernel_vs_plain"]), (what, e)
+            assert e["f32_kernel_vs_plain"] <= e["f32_limit"], (what, e)
+            # the bf16 control: bf16 activations alone fail the f32 limit
+            assert e["plain_vs_f32"] > e["f32_limit"], (what, e)
         if given is not None:
             # int8 weights and cache against the base path's bf16 weights,
             # reported (the reference's rule, < 0.08, is held on the CPU at
@@ -1475,6 +1735,9 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
         first = first_layer_vs_plain(cfg, model, params, batch_in)
     elif cfg.family in ("moe", "encdec", "vlm") or cfg.weight_quant != "none":
         first = first_attention_vs_plain(cfg, model, params, batch_in)
+    if cfg.mla is not None:
+        first.update(first_latent_decode_vs_plain(cfg, model, params,
+                                                  batch_in, max_seq))
 
     checks_peak = torch.cuda.max_memory_allocated()   # the f32 models' too
     ref_eng = ServeEngine(ref_cfg, batch=batch, max_seq=max_seq,
@@ -1557,8 +1820,9 @@ def _one_path(m, params, batch_in, max_seq):
 
 
 def logit_errs(logits, what) -> dict:
+    """The largest difference of each pair of `PAIRS` whose paths ran."""
     e = {pair: (logits[a][what] - logits[b][what]).abs().max().item()
-         for pair, (a, b) in PAIRS.items()}
+         for pair, (a, b) in PAIRS.items() if a in logits and b in logits}
     e["logits_abs_max"] = logits["f32"][what].abs().max().item()
     return e
 
@@ -1642,6 +1906,40 @@ def first_attention_vs_plain(cfg, model, params, batch_in) -> dict:
     assert rel <= 2e-2, rel
     return {"attn_block_out": {"max_rel_err": rel, "scale": scale,
                                "limit": 2e-2}}
+
+
+def first_latent_decode_vs_plain(cfg, model, params, batch_in,
+                                 max_seq) -> dict:
+    """The first layer's latent attention in one decode step after the
+    checks' prefill (norm, projections, the latent written at each row's
+    length, the absorbed attention, the output projection) through the
+    latent-decode kernel (`attention_impl="cuda"`) and through its plain
+    version, in bf16 on copies of the same cache: held to 2e-2 of its
+    largest magnitude, as the prefill's attention block."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cache = model.init_cache(2, max_seq)
+    model.prefill(params, batch_in, cache)
+    lengths = cache["length"]
+    tok = torch.full((2, 1), 17, dtype=torch.int32, device="cuda")
+    x = T.embed_tokens(params, cfg, model.dims, tok)
+    rope = T.rope_tables(cfg, lengths[:, None])
+    p = T.layer_params(params, cfg, 0)
+    out = {}
+    for impl in ("cuda", "reference"):
+        lat = cache["latent"][0].clone()
+        out[impl] = D._mla_decode_attn(
+            p, dataclasses.replace(cfg, attention_impl=impl), x, rope, lat,
+            lengths, lengths + 1, D._write_index(lengths, lat)).float()
+    del cache
+    g, w = out["cuda"], out["reference"]
+    assert bool(torch.isfinite(g).all())
+    scale = w.abs().max().item()
+    rel = (g - w).abs().max().item() / max(scale, 1e-30)
+    assert rel <= 2e-2, rel
+    return {"latent_decode_out": {"max_rel_err": rel, "scale": scale,
+                                  "limit": 2e-2,
+                                  "lengths": lengths.tolist()}}
 
 
 def first_layer_vs_plain(cfg, model, params, batch_in) -> dict:
@@ -1730,11 +2028,12 @@ def phase_trace(path, eng, params, prefill_len: int, steps: int = 5) -> None:
         rows.sort(key=lambda r: -r[1])
         out[name] = {
             "host_ms": host_ms, "device_busy_ms": busy_ms,
-            # the port's own kernels (K1, K2, K3, the grouped MoE) by name
+            # the port's own kernels (K1, K2, K3, the grouped MoE, the
+            # latent decode) by name
             "port_kernels": {k[:60]: {"ms": ms, "calls": n}
                              for k, ms, n in rows
                              if "flash_" in k or "ssd_" in k
-                             or "moe_grouped" in k},
+                             or "moe_grouped" in k or "mla_decode" in k},
             "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:70], "ms": ms, "calls": n}
@@ -1758,8 +2057,11 @@ def phase_profile(path, eng) -> None:
     prof = eng.profile()
     names = prof.table.names
     assert prof.n_intervals >= 1
+    # a MoE stack led by dense layers has their mlp block too
+    blocks = BLOCKS[eng.cfg.family] + (("mlp",) if eng.cfg.n_dense_layers
+                                       else ())
     for kind in ("prefill", "decode"):
-        for block in BLOCKS[eng.cfg.family]:
+        for block in blocks:
             assert f"{kind}/{block}" in names, (kind, block, names)
     extra = {}
     if eng.cfg.family in ("ssm", "hybrid"):
@@ -2181,6 +2483,7 @@ def kernels_refuse_grad(cfg, params, batch) -> dict:
     `Model.loss` on `attention_impl="cuda"`.  None of them launches."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     from repro_torch.models.model_zoo import build_model
@@ -2201,6 +2504,8 @@ def kernels_refuse_grad(cfg, params, batch) -> dict:
         "grouped_mlp": lambda: grouped_mlp(
             leaf(1, 64), leaf(1, 64, 64), leaf(1, 64, 64), leaf(1, 64, 64),
             *_one_entry(), top_k=1),
+        "mla_decode": lambda: mla_decode(leaf(1, 16, 576), leaf(1, 64, 576),
+                                         lengths, scale=1.0),
         "model_loss_cuda": lambda: build_model(dataclasses.replace(
             cfg, attention_impl="cuda")).loss(params, batch),
     }
@@ -2968,6 +3273,7 @@ def kernels_refuse_dtensor(mesh) -> dict:
     from torch.distributed.tensor import Replicate, distribute_tensor
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
 
@@ -2989,6 +3295,8 @@ def kernels_refuse_dtensor(mesh) -> dict:
         "grouped_mlp": lambda: grouped_mlp(
             leaf(1, 64), leaf(1, 64, 64), leaf(1, 64, 64), leaf(1, 64, 64),
             *_one_entry(), top_k=1),
+        "mla_decode": lambda: mla_decode(leaf(1, 16, 576), leaf(1, 64, 576),
+                                         lengths, scale=1.0),
     }
     before = read_counters()
     out = {}
@@ -3281,7 +3589,7 @@ def one_card_check(tmp) -> dict:
     torch.cuda.synchronize()
     launches = read_counters()
     want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers,
-            "ssd_intra": 0, "grouped_mlp": 0}
+            "ssd_intra": 0, "grouped_mlp": 0, "mla_decode": 0}
     assert launches == want, (launches, want)
     out["launches"] = launches
     for k, fn in (("decode", decode), ("prefill", prefill)):
@@ -3369,7 +3677,7 @@ PATHS = (("qwen3-1.7b", 256, 1024), ("qwen3-1.7b/int8", 256, 1024),
          ("whisper-tiny", 64, 1024), ("internvl2-76b", 512, 1024),
          ("gemma3-4b", 1536, 2048), ("qwen2.5-14b", 256, 1024),
          ("llama4-scout-17b-a16e", 256, 1024),
-         ("mistral-large-123b", 256, 1024))
+         ("mistral-large-123b", 256, 1024), ("deepseek-v2-lite", 512, 1024))
 VARIANTS = {"int8": dict(weight_quant="int8", cache_quant="int8"),
             "int4": dict(weight_quant="int4")}
 # the variants whose weights are quantized from their base path's
@@ -3389,7 +3697,7 @@ SERVE_DEPTH = {"internvl2-76b": 8, "llama4-scout-17b-a16e": 4,
 # 3 B values.
 SERVE_INIT_DEVICE = {name: "cuda" for name in (
     "olmoe-1b-7b", "internvl2-76b", "gemma3-4b", "qwen2.5-14b",
-    "llama4-scout-17b-a16e", "mistral-large-123b")}
+    "llama4-scout-17b-a16e", "mistral-large-123b", "deepseek-v2-lite")}
 
 
 def path_config(path: str):

@@ -1,4 +1,6 @@
-# Counterpart of src/repro/configs/__init__.py; nothing left unported.
+# Counterpart of src/repro/configs/__init__.py; nothing left unported.  The
+# port lists architectures of its own beside the reference's (`PORT_ONLY`);
+# `reference_archs` is the list both packages have.
 """Architecture registry: ``get_config("qwen3-1.7b")`` etc."""
 from __future__ import annotations
 
@@ -6,7 +8,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, AttnConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES,
+    ArchConfig, AttnConfig, MLAConfig, MoEConfig, SSMConfig, ShapeConfig,
+    SHAPES,
     shapes_for, reduced, dtype_of,
 )
 
@@ -21,11 +24,23 @@ _MODULES = {
     "whisper-tiny": "whisper_tiny",
     "zamba2-1.2b": "zamba2_1_2b",
     "internvl2-76b": "internvl2_76b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
+# Architectures of the port alone, with why the JAX package has none.
+PORT_ONLY = {
+    "deepseek-v2-lite": "latent attention (MLA), shared experts at their own "
+                        "width and a leading dense layer are the port's",
 }
 
 
 def list_archs() -> List[str]:
     return list(_MODULES)
+
+
+def reference_archs() -> List[str]:
+    """The architectures that the JAX package lists too."""
+    return [a for a in _MODULES if a not in PORT_ONLY]
 
 
 def get_config(name: str) -> ArchConfig:

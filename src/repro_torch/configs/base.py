@@ -1,7 +1,12 @@
 # Counterpart of src/repro/configs/base.py.  Pure data, copied; ``dtype_of``
 # returns torch dtypes, and ``attention_impl`` and ``ssm_impl`` gain the value
 # "cuda" (the port's default for both).  Nothing of the module is left
-# unported.
+# unported.  The port adds fields of its own, each defaulting to the
+# reference's behaviour (`PORT_ONLY_FIELDS`; `config_dict` is a config's
+# dict without them at their defaults): latent attention (`MLAConfig`,
+# `ArchConfig.mla`), leading dense layers (`n_dense_layers`), a shared-expert
+# width apart from `d_ff` (`MoEConfig.d_shared`) and top-k gates left as
+# the softmax gives them (`MoEConfig.norm_topk`).
 """Architecture / shape / run configuration dataclasses.
 
 Every assigned architecture gets a module in ``repro_torch.configs`` exporting a
@@ -12,7 +17,7 @@ valid for sub-quadratic-attention families, per DESIGN.md §Arch-applicability).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +31,8 @@ class MoEConfig:
     capacity_factor: float = 1.25     # dense-dispatch capacity bound
     router_jitter: float = 0.0
     aux_loss_coef: float = 0.01
+    d_shared: int = 0                 # the shared experts' one MLP; 0: d_ff
+    norm_topk: bool = True            # renormalise the top-k gates to sum 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,35 @@ class AttnConfig:
     local_window: int = 0             # 0 => all layers global
     global_every: int = 0             # every k-th layer is global (1-indexed)
     softcap: float = 0.0              # logit soft-capping (gemma-style), 0=off
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434 §2.1) with
+    q uncompressed: keys and values come from one normalised latent of
+    ``kv_lora_rank`` a token, each head's key is ``qk_nope_head_dim`` wide
+    from the latent plus one ``qk_rope_head_dim`` wide roped key shared by
+    the heads; values ``v_head_dim`` wide.  YaRN rope (``rope_factor`` > 1)
+    over ``original_max_position`` positions."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_factor: float = 1.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """The cache's width a token: the latent and the roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +135,17 @@ class ArchConfig:
     remat: str = "full"               # none | full | selective
     scan_layers: bool = True
     source: str = ""                  # provenance note [source; tier]
+    # latent attention in place of ``attn``'s projections (``attn`` keeps
+    # the heads, head_dim = the qk width, and the rope base); a dict is
+    # taken as the MLAConfig's fields
+    mla: Optional[MLAConfig] = None
+    # the first ``n_dense_layers`` layers of an MoE stack have a dense MLP of
+    # width ``d_ff`` (DeepSeek's ``first_k_dense_replace``)
+    n_dense_layers: int = 0
+
+    def __post_init__(self):
+        if isinstance(self.mla, dict):
+            object.__setattr__(self, "mla", MLAConfig(**self.mla))
 
     # ---- derived ----------------------------------------------------------
     @property
@@ -133,16 +180,23 @@ class ArchConfig:
         if not self.tie_embeddings:
             total += v * d                                   # lm head
         per_layer = 0
-        if self.attn is not None:
+        if self.mla is not None:
+            per_layer += _mla_params(self)
+        elif self.attn is not None:
             a = self.attn
             qkv = d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
             o = a.n_heads * a.head_dim * d
             per_layer += qkv + o
+        mlp = (3 if self.glu else 2) * d               # a width's weights
         if self.family == "moe" and self.moe is not None:
             m = self.moe
-            e_mlp = (3 if self.glu else 2) * d * m.d_expert
-            per_layer += m.n_experts * e_mlp + d * m.n_experts  # experts+router
-            per_layer += m.n_shared_experts * (3 if self.glu else 2) * d * f
+            moe = m.n_experts * mlp * m.d_expert + d * m.n_experts
+            # the shared experts: one MLP of d_ff each, or one of d_shared
+            moe += mlp * (m.d_shared or m.n_shared_experts * f)
+            # leading dense layers have an MLP of d_ff in its place
+            nd = self.n_dense_layers
+            total += nd * (mlp * f - moe)
+            per_layer += moe
         elif self.family in ("ssm",):
             per_layer = _mamba2_params(self)
         elif self.family == "hybrid":
@@ -169,7 +223,8 @@ class ArchConfig:
         """Params touched per token (MoE: routed top-k + shared only)."""
         if self.family != "moe" or self.moe is None:
             return self.param_count()
-        d, L, m = self.d_model, self.n_layers, self.moe
+        d, m = self.d_model, self.moe
+        L = self.n_layers - self.n_dense_layers
         e_mlp = (3 if self.glu else 2) * d * m.d_expert
         dense_total = self.param_count() - L * m.n_experts * e_mlp
         return dense_total + L * m.top_k * e_mlp
@@ -209,6 +264,35 @@ def dtype_of(name: str):
             "float16": torch.float16}[name]
 
 
+# The port's fields that the JAX package's configs lack, at the values that
+# keep the reference's behaviour.
+PORT_ONLY_FIELDS = {
+    "ArchConfig": {"mla": None, "n_dense_layers": 0},
+    "MoEConfig": {"d_shared": 0, "norm_topk": True},
+}
+
+
+def config_dict(cfg: ArchConfig) -> Dict[str, Any]:
+    """``dataclasses.asdict(cfg)`` without the port's own fields where they
+    hold their defaults: for an architecture of both packages, the JAX
+    package's dict, so the specs and artifact keys made from it are too."""
+    d = dataclasses.asdict(cfg)
+    for tree, name in ((d, "ArchConfig"), (d["moe"], "MoEConfig")):
+        for key, default in PORT_ONLY_FIELDS[name].items():
+            if tree is not None and tree[key] == default:
+                del tree[key]
+    return d
+
+
+def _mla_params(cfg: ArchConfig) -> int:
+    """One latent-attention block: q, the latent and roped key with the
+    latent's norm, the latent's up projection to k_nope and v, and out."""
+    m, h, d = cfg.mla, cfg.attn.n_heads, cfg.d_model
+    return (d * h * m.qk_head_dim + d * m.latent_dim + m.kv_lora_rank
+            + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+            + h * m.v_head_dim * d)
+
+
 def _mamba2_params(cfg: ArchConfig) -> int:
     s = cfg.ssm
     assert s is not None
@@ -244,7 +328,11 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,
         m = cfg.moe
         changes["moe"] = dataclasses.replace(
             m, n_experts=min(m.n_experts, 4), top_k=min(m.top_k, 2),
-            d_expert=32)
+            d_expert=32, d_shared=32 * m.n_shared_experts if m.d_shared else 0)
+    if cfg.mla is not None:              # head_dim 16 = 8 + 8, as the heads'
+        changes["mla"] = dataclasses.replace(
+            cfg.mla, kv_lora_rank=32, qk_nope_head_dim=8, qk_rope_head_dim=8,
+            v_head_dim=16)
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, d_state=16, head_dim=16, chunk=16)

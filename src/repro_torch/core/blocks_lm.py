@@ -18,7 +18,9 @@ enc-dec family has an ``enc_layer`` block (over ``n_frames`` positions,
 non-causal) and a ``dec_layer`` block (causal self-attention,
 cross-attention to an encoder output of ``n_frames`` positions, MLP); the
 VLM's blocks are the dense family's (the patch projection is not traced, as
-in the reference).
+in the reference).  An MoE stack that leads with dense layers (the port's
+``n_dense_layers``) has an ``mlp`` block too, before the ``moe`` layers; a
+latent-attention block is traced in its prefill (expanded) form.
 """
 from __future__ import annotations
 
@@ -89,9 +91,11 @@ def block_functions(model: Model, shape: ShapeConfig):
         blocks.append(("attn", lambda p, xx, pp: T._attn_block(
             p, cfg, dims, xx, pp, -1, plus_one=False, aux={})[0],
             (lp, x, pos)))
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm") or cfg.n_dense_layers:
+        dp = (_spec_struct(T.layer_specs(cfg, dims, dense=True), dt)
+              if cfg.n_dense_layers else lp)
         blocks.append(("mlp", lambda p, xx: T._mlp_block(
-            p, cfg, xx, plus_one=False, aux={}), (lp, x)))
+            p, cfg, xx, plus_one=False, aux={}), (dp, x)))
     if cfg.family == "moe":
         blocks.append(("moe", lambda p, xx: M.moe_mlp(p["moe"], cfg, xx)[0],
                        (lp, x)))
@@ -135,8 +139,11 @@ def build_block_table(model: Model, shape: ShapeConfig,
         prog.append(Segment((add("dec_layer"),), cfg.n_layers))
     else:
         i_attn = add("attn")
+        if cfg.n_dense_layers:
+            prog.append(Segment((i_attn, add("mlp")), cfg.n_dense_layers))
         i_mlp = add("moe" if cfg.family == "moe" else "mlp")
-        prog.append(Segment((i_attn, i_mlp), cfg.n_layers))
+        prog.append(Segment((i_attn, i_mlp),
+                            cfg.n_layers - cfg.n_dense_layers))
     prog.append(Segment((add("head"),), 1))
 
     # ---- virtual (signature-only) blocks -----------------------------------

@@ -289,14 +289,15 @@ def histogram_delta(a: Dict[str, int], b: Dict[str, int]
 # the §V-B study: the portable IR against what the card runs
 # ---------------------------------------------------------------------------
 
-# the port's own kernels (K1, K2, K3, the grouped MoE products), by the
-# names their launches carry
+# the port's own kernels (K1, K2, K3, the grouped MoE products, the latent
+# decode), by the names their launches carry
 PORT_KERNEL_NAMES = {
     "flash_attention": ("flash_attention_kernel",
                         "flash_attention_bf16_kernel"),
     "flash_decode": ("flash_decode_kernel",),
     "ssd_intra": ("ssd_intra_kernel", "ssd_tc_kernel"),
     "grouped_mlp": ("moe_grouped_kernel",),
+    "mla_decode": ("mla_decode_kernel",),
 }
 
 

@@ -30,7 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream is c_void_p)
 SIGNATURES = {
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _F, _P],
+                           _I, _I, _I, _I, _F, _F, _P],
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "rt_flash_decode_tile": [],
@@ -40,6 +40,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _P],
     "rt_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P],
+    "rt_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
+                      _P],
 }
 
 _lock = threading.Lock()

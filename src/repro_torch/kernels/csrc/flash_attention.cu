@@ -264,32 +264,33 @@ int dispatch_flash(int D, const void* q, const void* k, const void* v,
 }  // namespace rt
 
 namespace rt {
-int flash_attention_bf16(int D, int bq, int wk, int bk, const void* q,
+int flash_attention_bf16(int D, int DV, int bq, int wk, int bk, const void* q,
                          const void* k, const void* v, void* out, int B, int S,
                          int H, int KV, int causal, int window, float cap,
                          float scale, cudaStream_t stream);
 }  // namespace rt
 
-// dtype: 0 = float32, 1 = bfloat16.  bq x bk are the q rows and keys of a
-// tile and `kv_warps` the warps that share a q tile's kv range, as the
-// wrapper's plan chose them (`attention_plan` in kernels/flash_attention.py).
-// Returns cudaGetLastError() after the launch (0 on success), -1 for a
-// head_dim, dtype or tile the kernels do not take.  Launches on `stream`,
-// does not synchronise, allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16.  D is the width of q and k, DV that of
+// v and the output (DV < D only in bf16, at D 192, DV 128).  bq x bk are the
+// q rows and keys of a tile and `kv_warps` the warps that share a q tile's
+// kv range, as the wrapper's plan chose them (`attention_plan` in
+// kernels/flash_attention.py).  Returns cudaGetLastError() after the launch
+// (0 on success), -1 for a head_dim, dtype or tile the kernels do not take.
+// Launches on `stream`, does not synchronise, allocates nothing.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int B, int S, int H, int KV,
-                                  int D, int dtype, int bq, int kv_warps,
-                                  int bk, int causal, int window, float cap,
-                                  float scale, void* stream) {
+                                  int D, int DV, int dtype, int bq,
+                                  int kv_warps, int bk, int causal, int window,
+                                  float cap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const int want = D == 256 ? 32 : 64;
-    if (bq != want || bk != want || kv_warps != 1) return -1;
+    if (bq != want || bk != want || kv_warps != 1 || DV != D) return -1;
     return rt::dispatch_flash<float>(D, q, k, v, out, B, S, H, KV, causal,
                                      window, cap, scale, st);
   }
   if (dtype == 1)
-    return rt::flash_attention_bf16(D, bq, kv_warps, bk, q, k, v, out, B, S,
-                                    H, KV, causal, window, cap, scale, st);
+    return rt::flash_attention_bf16(D, DV, bq, kv_warps, bk, q, k, v, out, B,
+                                    S, H, KV, causal, window, cap, scale, st);
   return -1;
 }

@@ -4,8 +4,10 @@
 //
 // Replaces, for bf16, the Pallas kernel `_flash_kernel` / `flash_attention`
 // of src/repro/kernels/flash_attention.py: out = softmax(mask(softcap(
-// q k^T / sqrt(D)))) v for q [B,S,H,D], k/v [B,S,KV,D], H = KV * group, by an
-// online softmax over kv tiles, f32 inside.
+// q k^T scale))) v for q [B,S,H,D], k [B,S,KV,D], v [B,S,KV,DV], H = KV *
+// group, by an online softmax over kv tiles, f32 inside.  DV = D but for
+// latent attention's expanded prefill (D 192 = 128 + 64 rope, DV 128), whose
+// values are narrower than its keys; its scale is not D^-1/2.
 //
 // What bounds it.  At the serving paths' prefills (S 256-512) the work is a
 // fraction of a GFLOP and a few MB, and the kernel is bound by latency and
@@ -60,18 +62,18 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D, int R, int WK, int BK>
+template <int D, int DV, int R, int WK, int BK>
 struct TcCfg {
   static constexpr int WARPS = R * WK;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BQ = 16 * R;       // q rows of a block
   static constexpr int LDS = D + 8;       // bf16 elements per shared row
   static constexpr int STAGES = 3;        // depth of the ring of K/V rounds
-  static constexpr bool Q_IN_REGS = D <= 128;
+  static constexpr bool Q_IN_REGS = D <= 192;
   static constexpr int KD = D / 16;       // k16 steps over the head dim
   static constexpr int NS = BK / 8;       // n8 tiles of a score row block
-  static constexpr int NO = D / 8;        // n8 tiles of an output row block
-  static constexpr int LDM = D + 4;       // f32 row stride of the merge area
+  static constexpr int NO = DV / 8;       // n8 tiles of an output row block
+  static constexpr int LDM = DV + 4;      // f32 row stride of the merge area
   // Q, then STAGES x WK x (K, V) tiles; after the loop the same memory holds
   // every warp's O (16 x LDM f32) and (m, l) of its rows.  The Python plan
   // computes the same.
@@ -79,8 +81,24 @@ struct TcCfg {
   static constexpr int MERGE_BYTES = WARPS * 16 * (LDM + 2) * 4;
   static constexpr int SMEM_BYTES =
       LOOP_BYTES > MERGE_BYTES ? LOOP_BYTES : MERGE_BYTES;
-  static_assert(D % 16 == 0 && BK % 16 == 0, "tile shapes");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D && BK % 16 == 0,
+                "tile shapes");
 };
+
+// The shared memory one block may opt in to (227 KB).
+constexpr int kSmemLimit = 232448;
+
+// kv tile of a round: 64 keys with one kv warp or at D 64 and below, else
+// 32, halved until three stages of a round fit the shared memory (D 256:
+// 32, or 16 with more kv warps; D 192 with four kv warps: 16).  The Python
+// plan (`bf16_plan`) computes the same.
+template <int D, int DV, int R, int WK>
+constexpr int tile_keys() {
+  int bk = (WK == 1 || D <= 64) ? 64 : 32;
+  while (bk > 16 && (16 * R + 3 * WK * 2 * bk) * (D + 8) * 2 > kSmemLimit)
+    bk /= 2;
+  return bk;
+}
 
 // Rows [row0, row0 + ROWS) of a [n_rows, D] bf16 slice (row stride
 // `row_stride` elements) into shared memory at `s_addr` with row stride LDS;
@@ -95,9 +113,21 @@ __device__ __forceinline__ void cp_tile(uint32_t s_addr, const bf16* gmem,
                                         int64_t row_stride, int row0,
                                         int n_rows) {
   constexpr int CH = D / 8;             // 16-byte chunks per row
+  if constexpr (THREADS % CH != 0) {
+    // D 192: 24 chunks a row do not divide the block, so the chunks go
+    // round the threads in order
+    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = row0 + r < n_rows;
+      cp_async16(s_addr + (r * LDS + c) * 2,
+                 ok ? gmem + static_cast<int64_t>(row0 + r) * row_stride + c
+                    : gmem,
+                 ok ? 16 : 0);
+    }
+    return;
+  }
   constexpr int RSTEP = THREADS / CH;   // rows between a thread's copies
   constexpr int ITERS = (ROWS + RSTEP - 1) / RSTEP;
-  static_assert(THREADS % CH == 0, "a thread keeps one column");
   const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
   const bf16* src = gmem + static_cast<int64_t>(row0 + r) * row_stride + c;
   const uint32_t dst = s_addr + (r * LDS + c) * 2;
@@ -113,14 +143,14 @@ __device__ __forceinline__ void cp_tile(uint32_t s_addr, const bf16* gmem,
 
 // (The 1 lets ptxas use up to 255 registers; without it ptxas capped the
 // D 64 kernels at 128 and spilled.)
-template <int D, int R, int WK, int BK>
+template <int D, int DV, int R, int WK, int BK>
 __global__ void __launch_bounds__(32 * R * WK, 1)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
                             int S, int H, int KV, int group, int causal,
                             int window, float cap, float scale) {
-  using C = TcCfg<D, R, WK, BK>;
+  using C = TcCfg<D, DV, R, WK, BK>;
   constexpr int BQ = C::BQ, LDS = C::LDS, KD = C::KD, NS = C::NS, NO = C::NO,
                 LDM = C::LDM, STAGES = C::STAGES;
 
@@ -142,9 +172,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t kv_stride = static_cast<int64_t>(KV) * D;
+  const int64_t v_stride = static_cast<int64_t>(KV) * DV;
   const bf16* q_base = q + (static_cast<int64_t>(b) * S * H + h) * D;
   const bf16* k_base = k + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-  const bf16* v_base = v + (static_cast<int64_t>(b) * S * KV + kvh) * D;
+  const bf16* v_base = v + (static_cast<int64_t>(b) * S * KV + kvh) * DV;
 
   // kv range this q tile can see.  window == 0 masks every key; the row is
   // then the mean of V over all keys, so the whole range is visited.
@@ -166,8 +197,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       if (t < t_end) {
         cp_tile<D, BK, LDS, C::THREADS>(st + j * 2 * BK * LDS * 2, k_base,
                                         kv_stride, t * BK, S);
-        cp_tile<D, BK, LDS, C::THREADS>(st + (j * 2 + 1) * BK * LDS * 2,
-                                        v_base, kv_stride, t * BK, S);
+        cp_tile<DV, BK, LDS, C::THREADS>(st + (j * 2 + 1) * BK * LDS * 2,
+                                         v_base, v_stride, t * BK, S);
       }
     }
   };
@@ -312,7 +343,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t bv[4];
         ldsm_x4_trans(sV_lane + (kk * 16 * LDS + dp * 16) * 2, bv);
         mma_bf16(o[2 * dp], a, bv[0], bv[1]);
@@ -366,9 +397,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     for (int j = 0; j < WK; ++j) mML[2 * ((j * R + rg) * 16 + rr)] = f[j] * inv;
   }
   __syncthreads();
-  bf16* o_base = out + static_cast<int64_t>(b) * S * q_stride +
-                 static_cast<int64_t>(h) * D;
-  constexpr int CP = D / 2;                 // column pairs of a row
+  const int64_t o_stride = static_cast<int64_t>(H) * DV;
+  bf16* o_base = out + static_cast<int64_t>(b) * S * o_stride +
+                 static_cast<int64_t>(h) * DV;
+  constexpr int CP = DV / 2;                // column pairs of a row
   constexpr int ROW_STEP = C::THREADS / CP;  // rows a pass of the block
   static_assert(C::THREADS % CP == 0 && BQ % ROW_STEP == 0, "merge passes");
   const int c = (threadIdx.x % CP) * 2;
@@ -386,17 +418,17 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       a1 = fmaf(w, ov.y, a1);
     }
     if (q0 + row < S)
-      *reinterpret_cast<uint32_t*>(o_base + (q0 + row) * q_stride + c) =
+      *reinterpret_cast<uint32_t*>(o_base + (q0 + row) * o_stride + c) =
           pack_bf16(a0, a1);
   }
 }
 
-template <int D, int R, int WK, int BK>
+template <int D, int DV, int R, int WK, int BK>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, int causal, int window, float cap,
            float scale, cudaStream_t stream) {
-  using C = TcCfg<D, R, WK, BK>;
-  auto kern = flash_attention_bf16_kernel<D, R, WK, BK>;
+  using C = TcCfg<D, DV, R, WK, BK>;
+  auto kern = flash_attention_bf16_kernel<D, DV, R, WK, BK>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -412,20 +444,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// kv tile of a round: 64 keys with one kv warp or at D 64 and below, else 32
-// (half that at D 256), so that three stages of a round fit shared memory.
-template <int D, int WK>
-constexpr int tile_keys() {
-  return (WK == 1 || D <= 64 ? 64 : 32) / (D == 256 ? 2 : 1);
-}
-
-template <int D>
+template <int D, int DV>
 int by_rows(int bq, int wk, int bk, const void* q, const void* k,
             const void* v, void* out, int B, int S, int H, int KV, int causal,
             int window, float cap, float scale, cudaStream_t stream) {
 #define RT_TC_CASE(RR, WW)                                                     \
-  if (bq == 16 * RR && wk == WW && bk == tile_keys<D, WW>())                   \
-    return launch<D, RR, WW, tile_keys<D, WW>()>(                              \
+  if (bq == 16 * RR && wk == WW && bk == tile_keys<D, DV, RR, WW>())           \
+    return launch<D, DV, RR, WW, tile_keys<D, DV, RR, WW>()>(                  \
         q, k, v, out, B, S, H, KV, causal, window, cap, scale, stream);
   RT_TC_CASE(8, 1)
   RT_TC_CASE(4, 2)
@@ -439,15 +464,19 @@ int by_rows(int bq, int wk, int bk, const void* q, const void* k,
 // bf16 entry, called by rt_flash_attention: the tiles the plan chose, `bq`
 // q rows (16 per row warp) with `wk` kv warps (8 warps in all) and kv tiles
 // of `bk` keys.  -1 for any combination the kernel is not built for.
-int flash_attention_bf16(int D, int bq, int wk, int bk, const void* q,
+int flash_attention_bf16(int D, int DV, int bq, int wk, int bk, const void* q,
                          const void* k, const void* v, void* out, int B, int S,
                          int H, int KV, int causal, int window, float cap,
                          float scale, cudaStream_t stream) {
+  if (D == 192 && DV == 128)  // latent attention's expanded prefill
+    return tc::by_rows<192, 128>(bq, wk, bk, q, k, v, out, B, S, H, KV,
+                                 causal, window, cap, scale, stream);
+  if (DV != D) return -1;
   switch (D) {
 #define RT_TC_D(DD)                                                            \
   case DD:                                                                     \
-    return tc::by_rows<DD>(bq, wk, bk, q, k, v, out, B, S, H, KV, causal,      \
-                           window, cap, scale, stream);
+    return tc::by_rows<DD, DD>(bq, wk, bk, q, k, v, out, B, S, H, KV, causal,  \
+                               window, cap, scale, stream);
     RT_TC_D(16)
     RT_TC_D(32)
     RT_TC_D(64)

@@ -37,6 +37,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# (q and k width, v width) pairs that K1 takes in bf16 with v narrower than
+# the keys: latent attention's expanded prefill (128 + 64 rope, v 128)
+NARROW_V = ((192, 128),)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 Window = Union[int, torch.Tensor, None]
@@ -88,7 +91,8 @@ class AttentionPlan:
 
 
 def attention_plan(b: int, s: int, h: int, hd: int,
-                   dtype: torch.dtype) -> AttentionPlan:
+                   dtype: torch.dtype, dv: Optional[int] = None
+                   ) -> AttentionPlan:
     """The tiles of one launch.  f32: 64 x 64 tiles of 256 threads (32 x 32 at
     head_dim 256), shared memory for Q, K, V and P as f32.  bf16: blocks of 8
     warps, the largest number of row warps (8, 4, 2: q tiles of 128, 64, 32
@@ -102,7 +106,7 @@ def attention_plan(b: int, s: int, h: int, hd: int,
         for rows in (8, 4, 2):
             if -(-s // (16 * rows)) * h * b >= TARGET_BLOCKS:
                 break
-        return bf16_plan(b, s, h, hd, rows)
+        return bf16_plan(b, s, h, hd, rows, dv)
     bq = bk = 32 if hd == 256 else 64
     smem = 4 * (bq * (hd + 4) + bk * (hd + 4) + bk * hd + bq * (bk + 4))
     return AttentionPlan(bq=bq, bk=bk, warps=8, kv_warps=1,
@@ -110,16 +114,23 @@ def attention_plan(b: int, s: int, h: int, hd: int,
                          target_blocks=TARGET_BLOCKS)
 
 
-def bf16_plan(b: int, s: int, h: int, hd: int, rows: int) -> AttentionPlan:
+def bf16_plan(b: int, s: int, h: int, hd: int, rows: int,
+              dv: Optional[int] = None) -> AttentionPlan:
     """The bf16 tiles with ``rows`` row warps (8, 4 or 2) of the block's 8;
     ``attention_plan`` picks ``rows``, ``chip_smoke.py --phases plans`` times
-    every choice."""
+    every choice.  ``dv``: the values' width where it is not ``hd``.  The kv
+    tile is halved from 64 (one kv warp, or hd 64 and below) or 32 until
+    three stages of a round fit the shared memory, as the kernel's
+    ``tile_keys``."""
+    dv = hd if dv is None else dv
     warps = 8
     kv_warps = warps // rows
     bq = 16 * rows
-    bk = (64 if kv_warps == 1 or hd <= 64 else 32) // (2 if hd == 256 else 1)
+    bk = 64 if kv_warps == 1 or hd <= 64 else 32
+    while bk > 16 and 2 * (hd + 8) * (bq + 3 * kv_warps * 2 * bk) > SMEM_LIMIT:
+        bk //= 2
     smem = max(2 * (hd + 8) * (bq + 3 * kv_warps * 2 * bk),
-               4 * warps * 16 * (hd + 6))
+               4 * warps * 16 * (dv + 6))
     return AttentionPlan(bq=bq, bk=bk, warps=warps, kv_warps=kv_warps,
                          grid=(-(-s // bq), h, b), smem_bytes=smem,
                          target_blocks=TARGET_BLOCKS)
@@ -158,12 +169,13 @@ def gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, group: int, causal: bool = True,
-                          window: Window = None,
-                          cap: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch version.  q: [B,S,H,hd]; k/v: [B,Sk,KV,hd], H = KV*group.
-    f32 inside, out in q's type; masked scores are the finite -1e30."""
+                          window: Window = None, cap: float = 0.0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version.  q: [B,S,H,hd]; k: [B,Sk,KV,hd], v [B,Sk,KV,dv],
+    H = KV*group; scores times ``scale`` (default hd^-1/2).  f32 inside, out
+    in q's type; masked scores are the finite -1e30."""
     sq, sk, hd = q.shape[1], k.shape[1], q.shape[-1]
-    s = gqa_scores(q, k, group) / math.sqrt(hd)
+    s = gqa_scores(q, k, group) * (hd ** -0.5 if scale is None else scale)
     if cap > 0:
         s = cap * torch.tanh(s / cap)
     dist = (torch.arange(sq, device=q.device)[:, None]
@@ -179,12 +191,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return gqa_out(p, v).to(q.dtype)
 
 
-def check_inputs(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+def check_inputs(name: str, q: torch.Tensor, *others: torch.Tensor,
+                 head_dims=HEAD_DIMS) -> None:
     """What the CUDA kernels take: one CUDA device, f32 or bf16 throughout,
     contiguous, 16-byte aligned, a head_dim the kernels are built for."""
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} (float32 or bfloat16 only)")
-    if q.shape[-1] not in HEAD_DIMS:
+    if q.shape[-1] not in head_dims:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
     for t in (q, *others):
         if t.device != q.device:
@@ -236,43 +249,51 @@ def window_arg(name: str, window: Window) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int, causal: bool = True, window: Window = None,
-                    cap: float = 0.0) -> torch.Tensor:
-    """q: [B,S,H,hd]; k/v: [B,S,KV,hd] with H = KV*group.  Positions are
-    arange (rope applied by the caller).  A CUDA tensor goes to the kernel or
-    raises; only a tensor that lies elsewhere (CPU, meta) takes the plain
-    version."""
+                    cap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,S,H,hd]; k: [B,S,KV,hd], v: [B,S,KV,dv] with H = KV*group, dv
+    = hd or a pair of `NARROW_V` in bf16; scores times ``scale`` (default
+    hd^-1/2).  Positions are arange (rope applied by the caller).  A CUDA
+    tensor goes to the kernel or raises; only a tensor that lies elsewhere
+    (CPU, meta) takes the plain version."""
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, group=group, causal=causal,
-                                     window=window, cap=cap)
+                                     window=window, cap=cap, scale=scale)
     refuse_dtensor("flash_attention", q, k, v)
     refuse_grad("flash_attention", q, k, v)
-    check_inputs("flash_attention", q, k, v)
     b, s, h, hd = q.shape
-    kv = k.shape[2]
-    if k.shape != (b, s, kv, hd) or v.shape != k.shape or h != kv * group:
+    kv, dv = k.shape[2], v.shape[-1]
+    narrow = dv != hd and (hd, dv) in NARROW_V and q.dtype == torch.bfloat16
+    check_inputs("flash_attention", q, k, v,
+                 head_dims=(hd,) if narrow else HEAD_DIMS)
+    if (k.shape != (b, s, kv, hd) or v.shape != (b, s, kv, dv)
+            or (dv != hd and not narrow) or h != kv * group):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                         f"group {group}")
-    return launch_with_plan(q, k, v, attention_plan(b, s, h, hd, q.dtype),
+                         f"group {group}, dtype {q.dtype}")
+    return launch_with_plan(q, k, v, attention_plan(b, s, h, hd, q.dtype, dv),
                             causal=causal,
                             window=window_arg("flash_attention", window),
-                            cap=cap)
+                            cap=cap, scale=scale)
 
 
 def launch_with_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      plan: AttentionPlan, *, causal: bool, window: int,
-                     cap: float) -> torch.Tensor:
+                     cap: float, scale: Optional[float] = None
+                     ) -> torch.Tensor:
     """Launch the kernel with the tiles of ``plan`` on inputs that
     ``flash_attention`` has checked."""
     b, s, h, hd = q.shape
+    dv = v.shape[-1]
     lib = build.load()
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, h, dv))
     with torch.cuda.device(q.device):
         err = lib.rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, k.shape[2], hd, DTYPE_CODES[q.dtype], plan.bq,
+            b, s, h, k.shape[2], hd, dv, DTYPE_CODES[q.dtype], plan.bq,
             plan.kv_warps, plan.bk, int(bool(causal)), window, float(cap),
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+            1.0 / math.sqrt(hd) if scale is None else float(scale),
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

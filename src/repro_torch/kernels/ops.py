@@ -17,10 +17,11 @@ from repro_torch.kernels.ssd import chunking, ssd_intra
 
 
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, group: int,
-                    causal: bool = True, window=None,
-                    cap: float = 0.0) -> torch.Tensor:
+                    causal: bool = True, window=None, cap: float = 0.0,
+                    scale=None) -> torch.Tensor:
     """Model-facing signature (positions are arange; rope pre-applied)."""
-    return _flash(q, k, v, group=group, causal=causal, window=window, cap=cap)
+    return _flash(q, k, v, group=group, causal=causal, window=window, cap=cap,
+                  scale=scale)
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, group: int, window=None,

@@ -194,8 +194,14 @@ def configure(arch: str, *, causal_skip: bool = False,
               weight_quant: str = "none", cache_quant: str = "none",
               capacity_factor: Optional[float] = None):
     """The cell's config: the arch's, on the chunked impls, with the knobs
-    applied as the reference applies them."""
-    from repro_torch.configs import get_config
+    applied as the reference applies them.  An architecture of the port
+    alone has no cell: the dry-run prices the reference's cells."""
+    from repro_torch.configs import PORT_ONLY, get_config
+    if arch in PORT_ONLY:
+        raise NotImplementedError(
+            f"{arch}: no dry-run cell; the dry-run prices the JAX package's "
+            f"architectures on its meshes and plans, and this one is the "
+            f"port's alone ({PORT_ONLY[arch]})")
     cfg = dataclasses.replace(get_config(arch), **IMPLS)
     if remat:
         cfg = dataclasses.replace(cfg, remat=remat)
@@ -517,24 +523,29 @@ def run_cell(arch: str, shape: Union[str, Any], mesh_kind: str,
 
 
 def kernel_launches() -> Dict[str, int]:
-    """The K1 / K2 / K3 and grouped MoE wrappers' launch counts in this
-    process (a dry-run cell runs on fake tensors and launches none)."""
+    """The K1 / K2 / K3, grouped MoE and latent-decode wrappers' launch
+    counts in this process (a dry-run cell runs on fake tensors and launches
+    none)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.kernels.ssd import ssd_intra
     return {"flash_attention": flash_attention.launches,
             "flash_decode": flash_decode.launches,
             "ssd_intra": ssd_intra.launches,
-            "grouped_mlp": grouped_mlp.launches}
+            "grouped_mlp": grouped_mlp.launches,
+            "mla_decode": mla_decode.launches}
 
 
 # ---------------------------------------------------------------------------
 
 
 def all_cells():
-    from repro_torch.configs import SHAPES, list_archs
-    for arch in list_archs():
+    """Every (arch, shape, mesh) cell of the architectures that the JAX
+    package has too (`configure` names the port's own as skipped)."""
+    from repro_torch.configs import SHAPES, reference_archs
+    for arch in reference_archs():
         for shape in SHAPES:
             for mesh in ("single", "multi"):
                 yield arch, shape, mesh

@@ -48,6 +48,7 @@ def main(argv=None):
     obs.configure_from_env()              # spans if REPRO_TRACE is set
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import config_dict
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve import ServeEngine, SyntheticRequests
 
@@ -66,13 +67,11 @@ def main(argv=None):
     stats = eng.run(params, [gen.request(i) for i in range(args.requests)])
     print(json.dumps(stats, indent=1))
     if args.profile_out or args.profile_cache or args.store:
-        import dataclasses
-
         from repro_torch.pipeline import persist_profile_cli
         persist_profile_cli(
             eng.builder, profile_out=args.profile_out,
             profile_cache=args.profile_cache, store=args.store,
-            spec={"arch": dataclasses.asdict(cfg), "kind": "serve",
+            spec={"arch": config_dict(cfg), "kind": "serve",
                   "requests": args.requests, "batch": args.batch,
                   "max_seq": args.max_seq, "prefill_len": args.prefill_len,
                   "temperature": args.temperature, "seed": args.seed,

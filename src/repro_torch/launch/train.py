@@ -57,6 +57,7 @@ def main(argv=None):
     obs.configure_from_env()              # spans if REPRO_TRACE is set
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import config_dict
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.schedule import linear_warmup_cosine
     from repro_torch.train import Trainer
@@ -91,7 +92,7 @@ def main(argv=None):
         persist_profile_cli(
             tr.builder, profile_out=args.profile_out,
             profile_cache=args.profile_cache, store=args.store,
-            spec={"arch": dataclasses.asdict(cfg), "kind": "train",
+            spec={"arch": config_dict(cfg), "kind": "train",
                   "seq_len": args.seq_len, "batch": args.batch,
                   "steps": args.steps, "seed": args.seed,
                   "interval_steps": args.interval_steps,

@@ -5,6 +5,9 @@
 # The `shard(...)` constraints are identities unless a plan is active and
 # the tensor is a DTensor (distributed/sharding.py); under a plan the
 # projections are `sharded_product`s and the attention core runs per rank.
+# The port's own: `attend` takes a `scale` where the scores' factor is not
+# head_dim^-1/2, and values narrower than the keys (latent attention's
+# expanded prefill, `models/mla.py`).
 """GQA attention: reference (quadratic), chunked (streaming softmax in plain
 PyTorch, the training path's) and cuda (the hand-written kernels).
 
@@ -193,8 +196,10 @@ def _mask_bias(q_pos, k_pos, window, causal: bool):
 # ---------------------------------------------------------------------------
 
 
-def _gqa_scores(q, k, group: int):
-    """-> [B, KVp, G, Sq, Sk] in f32."""
+def _gqa_scores(q, k, group: int, scale=None):
+    """-> [B, KVp, G, Sq, Sk] in f32, times ``scale`` (default hd^-1/2)."""
+    if scale is not None:
+        return gqa_scores(q, k, group) * scale
     return gqa_scores(q, k, group) / math.sqrt(q.shape[-1])
 
 
@@ -204,11 +209,11 @@ def _gqa_out(probs, v, hp: int):
 
 def attend_reference(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
                      causal: bool, window, cap: float = 0.0,
-                     kv_len=None) -> torch.Tensor:
+                     kv_len=None, scale=None) -> torch.Tensor:
     """The quadratic softmax.  ``kv_len`` ([B] or broadcastable to k_pos's
     batch axis): keys at positions >= kv_len are masked (empty cache
-    slots)."""
-    scores = _gqa_scores(q, k, layout.group)
+    slots).  ``scale``: the scores' factor where it is not hd^-1/2."""
+    scores = _gqa_scores(q, k, layout.group, scale)
     scores = L.softcap(scores, cap)
     bias = _mask_bias(q_pos, k_pos, window, causal)
     if kv_len is not None:              # decode: mask empty cache slots
@@ -221,7 +226,7 @@ def attend_reference(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
 def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
                    causal: bool, window, cap: float = 0.0,
                    q_chunk: int = 1024, kv_chunk: int = 1024,
-                   causal_skip: bool = False) -> torch.Tensor:
+                   causal_skip: bool = False, scale=None) -> torch.Tensor:
     """Streaming-softmax (flash-style) attention in plain PyTorch.  Exact,
     and differentiable by autograd: it is the attention of the train step.
 
@@ -231,8 +236,11 @@ def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
     causal frontier (removes the ~2x masked FLOPs of the dense schedule).
     Without it every q block walks every kv block, so the q blocks go as one
     (each row's arithmetic is a q block's; the reference's q loop is
-    unrolled too): the same FLOPs and values in ``nq`` times fewer calls."""
-    b, sq, hp, hd = q.shape
+    unrolled too): the same FLOPs and values in ``nq`` times fewer calls.
+    v may be narrower than q and k (latent attention's expanded prefill);
+    ``scale``: the scores' factor where it is not hd^-1/2."""
+    b, sq, hp, _ = q.shape
+    hd = v.shape[-1]
     sk = k.shape[1]
     qc, kc = min(q_chunk, sq), min(kv_chunk, sk)
     nq, nk = -(-sq // qc), -(-sk // kc)
@@ -256,17 +264,17 @@ def attend_chunked(q, k, v, q_pos, k_pos, layout: HeadLayout, *,
         for j in range(kv_hi):
             kj = k[:, j * kc:(j + 1) * kc]
             vj = v[:, j * kc:(j + 1) * kc]
-            s = _gqa_scores(qs, kj, g)                   # [b,n,g,qc,kc]
+            s = _gqa_scores(qs, kj, g, scale)            # [b,n,g,qc,kc]
             s = L.softcap(s, cap)
             s = s + _mask_bias(qp, k_pos[:, j * kc:(j + 1) * kc], window,
                                causal)[:, None, None]
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
-            scale = torch.exp(m - m_new)
-            l = l * scale + torch.sum(p, dim=-1)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
             pv = torch.matmul(p.reshape(b, n, g * qc, kc),
                               vj.float().permute(0, 2, 1, 3))
-            acc = acc * scale[..., None] + pv.reshape(b, n, g, qc, hd)
+            acc = acc * alpha[..., None] + pv.reshape(b, n, g, qc, hd)
             m = m_new
         l = torch.where(l == 0.0, 1.0, l)
         out = acc / l[..., None]                         # [b,n,g,qc,hd]
@@ -337,7 +345,8 @@ def attend_decode(q, k_cache, v_cache, cache_len, layout: HeadLayout, *,
 
 
 def attend(impl: str, q, k, v, q_pos, k_pos, layout, *, causal, window,
-           cap=0.0, q_chunk=1024, kv_chunk=1024, causal_skip=False):
+           cap=0.0, q_chunk=1024, kv_chunk=1024, causal_skip=False,
+           scale=None):
     if isinstance(q, DTensor):
         # each (batch row, head) attends alone: run on this rank's rows and
         # heads (the head padding keeps a shard's q heads with their kv
@@ -348,19 +357,21 @@ def attend(impl: str, q, k, v, q_pos, k_pos, layout, *, causal, window,
         out = attend(impl, part(q), part(k), part(v), part(q_pos, (0,)),
                      part(k_pos, (0,)), layout, causal=causal,
                      window=window, cap=cap, q_chunk=q_chunk,
-                     kv_chunk=kv_chunk, causal_skip=causal_skip)
+                     kv_chunk=kv_chunk, causal_skip=causal_skip, scale=scale)
         return from_local_part(out, q, (0, 2))
     if impl == "reference":
         return attend_reference(q, k, v, q_pos, k_pos, layout,
-                                causal=causal, window=window, cap=cap)
+                                causal=causal, window=window, cap=cap,
+                                scale=scale)
     if impl == "chunked":
         return attend_chunked(q, k, v, q_pos, k_pos, layout, causal=causal,
                               window=window, cap=cap, q_chunk=q_chunk,
-                              kv_chunk=kv_chunk, causal_skip=causal_skip)
+                              kv_chunk=kv_chunk, causal_skip=causal_skip,
+                              scale=scale)
     if impl == "cuda":
         return kops.flash_attention(q, k, v, q_pos, k_pos,
                                     group=layout.group, causal=causal,
-                                    window=window, cap=cap)
+                                    window=window, cap=cap, scale=scale)
     if impl == "pallas":
         raise NotImplementedError(
             "attention impl 'pallas' is the JAX package's TPU kernel; the "

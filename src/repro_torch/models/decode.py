@@ -8,6 +8,9 @@
 # A decode step's attention carries the block's label and its phases'
 # (`layers.scope`), as the prefill's does, where the reference's decode has
 # none; the prefill's copies of k/v into the cache are labelled too.
+# Latent attention (the port's own, `models/mla.py`) caches one latent a
+# token and layer (``cache["latent"]``); its decode runs the absorbed form,
+# each layer's attention timed as ``attn.mla.decode``.
 """Prefill and single-token decode over the stacked KV / SSM caches.
 
 The cache is **updated in place** (the JAX package returns new arrays): the
@@ -37,11 +40,13 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import local_part, local_range, shard
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KC
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
     ModelDims, _aux_zero, _ffn, _hybrid_groups, _mlp_block, _shared_attn_block,
@@ -90,12 +95,19 @@ def _write_index(lengths: torch.Tensor, like: torch.Tensor):
 def _write_kv(k_l, v_l, k_new, v_new, lengths, index=None):
     """Per-row write of one token's kv at each row's length, in place.
     Rows out of range keep their old value (see `_write_index`).  A DTensor
-    layer is written on this rank's part, as plain tensors."""
+    layer is written on this rank's part, as plain tensors.  Latent
+    attention writes its one cache layer as ``k_l`` ([B, S, r + dr], its
+    token's latent ``k_new`` [B, 1, r + dr]), with ``v_l`` None."""
     rows, pos, ok = _write_index(lengths, k_l) if index is None else index
     for dst, new in ((k_l, k_new), (v_l, v_new)):
+        if dst is None:
+            continue
         d = _local(dst)
         new = local_part(new, dst, (0, 2))[:, 0].to(d.dtype)
-        d[rows, pos] = torch.where(ok, new, d[rows, pos])
+        keep = ok.reshape((-1,) + (1,) * (new.ndim - 1))
+        d[rows, pos] = torch.where(keep, new, d[rows, pos])
+    if v_l is None:
+        return k_l, None
     return (shard(k_l, "batch", "kv_seq", "act_heads", None),
             shard(v_l, "batch", "kv_seq", "act_heads", None))
 
@@ -149,7 +161,9 @@ def lm_prefill(params, cfg: ArchConfig, dims: ModelDims, tokens,
                                          collect_kv=True, plus_one=plus_one)
         with L.scope("nugget_block_attn.cache_write"):
             for i in range(cfg.n_layers):          # in place, layer by layer
-                if quant:
+                if cfg.mla is not None:
+                    cache["latent"][i, :, :s].copy_(ks[i])
+                elif quant:
                     for key, kv in (("k", ks[i]), ("v", vs[i])):
                         q, scale = KC.quantize_kv(kv)
                         cache[key][i, :, :s].copy_(q)
@@ -235,10 +249,17 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one,
     attend_len = lengths + 1                         # includes this token
     windows = cfg.layer_windows()
     rope = rope_tables(cfg, positions)               # once for all layers
-    index = _write_index(lengths, cache["k"][0])
+    mla = cfg.mla is not None
+    index = _write_index(lengths, cache["latent" if mla else "k"][0])
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
         dt = x.dtype
+        if mla:
+            attn_out = _mla_decode_attn(p, cfg, x, rope, cache["latent"][i],
+                                        lengths, attend_len, index)
+            x = x + attn_out
+            x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)
+            continue
         with L.scope("nugget_block_attn"):
             with L.scope("nugget_block_attn.qkv"):
                 h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps,
@@ -269,6 +290,23 @@ def _dense_decode(params, cfg, dims, x, positions, cache, aux, *, plus_one,
             x = x + attn_out
             x = _mlp_block(p, cfg, x, plus_one=plus_one, aux=aux)
     return x
+
+
+def _mla_decode_attn(p, cfg, x, rope, lat_l, lengths, attend_len, index):
+    """One layer's latent attention for one token a row: the projections,
+    the latent written at each row's length, the absorbed attention and the
+    output projection."""
+    dt = x.dtype
+    with obs.timed("attn.mla.decode"), L.scope("nugget_block_attn"):
+        with L.scope("nugget_block_attn.qkv"):
+            h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+            q_nope, q_pe, latent = MLA.project(p["attn"], cfg, h, rope, dt)
+        with L.scope("nugget_block_attn.cache_write"):
+            lat_l, _ = _write_kv(lat_l, None, latent, None, lengths, index)
+        ctx = MLA.attend_absorbed(p["attn"], cfg, q_nope, q_pe, lat_l,
+                                  attend_len, dt)
+        with L.scope("nugget_block_attn.out"):
+            return MLA.out_proj(p["attn"], ctx, dt)
 
 
 def _ssm_decode_layer(params, cfg, i, x, cache):

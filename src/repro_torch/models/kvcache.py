@@ -9,7 +9,10 @@ Layout: stacked over layers, ``k``/``v``: [L, B, S_max, KVp, hd]; SSM state
 int32.  With ``quant`` the k/v payload is int8 and ``k_scale``/``v_scale``
 ([L, B, S_max, KVp], bf16) hold one scale per (token, head).  The enc-dec
 family's cross-attention cache ``cross_k``/``cross_v`` ([L, B, cross_len,
-KVp, hd], compute dtype) holds the encoder's projected k/v.  The cache is
+KVp, hd], compute dtype) holds the encoder's projected k/v.  Latent
+attention (the port's own) caches ``latent``: [L, B, S_max, r + dr] in the
+compute dtype, the normalised latent and the roped key of each token.  The
+cache is
 owned by its caller and **updated in place** by prefill and decode, where
 the JAX package returns new arrays.
 """
@@ -33,6 +36,9 @@ CACHE_AXES = {
     "conv": (None, "batch", None, "ssm_inner"),
     "length": ("batch",),
 }
+# the port's own leaves: latent attention's cache
+PORT_CACHE_AXES = {"latent": (None, "batch", "kv_seq", None)}
+_AXES = {**CACHE_AXES, **PORT_CACHE_AXES}
 
 
 def quantize_kv(x: torch.Tensor):
@@ -52,7 +58,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
                head_dim: int, dtype, *, ssm: Optional[Dict[str, int]] = None,
                cross_len: int = 0, device: DeviceLike = None,
-               quant: bool = False) -> Dict[str, Any]:
+               quant: bool = False, latent_dim: int = 0) -> Dict[str, Any]:
     dev = resolve_device(device)
     cache: Dict[str, Any] = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=dev),
@@ -67,6 +73,9 @@ def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
                                            device=dev)
             cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
                                            device=dev)
+    if latent_dim:
+        cache["latent"] = torch.zeros((n_layers, batch, max_seq, latent_dim),
+                                      dtype=dtype, device=dev)
     if cross_len and kv_pad:
         shape = (n_layers, batch, cross_len, kv_pad, head_dim)
         cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -82,11 +91,11 @@ def init_cache(n_layers: int, batch: int, max_seq: int, kv_pad: int,
 
 
 def shard_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: shard(v, *CACHE_AXES[k]) for k, v in cache.items()}
+    return {k: shard(v, *_AXES[k]) for k, v in cache.items()}
 
 
 def cache_specs(cache: Dict[str, Any], plan) -> Dict[str, Any]:
-    return {k: plan.spec(CACHE_AXES[k]) for k in cache}
+    return {k: plan.spec(_AXES[k]) for k in cache}
 
 
 def update_layer_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,

@@ -151,6 +151,8 @@ class Model:
     def init_cache(self, batch: int, max_seq: int):
         cfg = self.cfg
         kv_pad = self.dims.layout.kv_pad if self.dims.layout else 0
+        if cfg.mla is not None:                 # one latent a token and layer
+            kv_pad = 0
         hd = cfg.attn.head_dim if cfg.attn else 0
         ssm = None
         n_kv_layers = cfg.n_layers
@@ -166,7 +168,9 @@ class Model:
                              cross_len=(cfg.n_frames if cfg.family == "encdec"
                                         else 0),
                              device=self.device,
-                             quant=cfg.cache_quant == "int8")
+                             quant=cfg.cache_quant == "int8",
+                             latent_dim=(cfg.mla.latent_dim if cfg.mla
+                                         else 0))
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):

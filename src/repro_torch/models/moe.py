@@ -11,7 +11,10 @@
 # them are DTensors under the reference's `shard(...)` constraints, and
 # the expert products run as DTensor ops.  The router's top-k runs on each
 # rank's rows too, and the aux loss's means and the router's statistics
-# come back as sums over the ranks' rows.
+# come back as sums over the ranks' rows.  The port's own options (for
+# deepseek-v2-lite): the shared experts as one MLP of their own width
+# (`MoEConfig.d_shared`) and top-k gates left as the softmax gives them
+# (`MoEConfig.norm_topk` off); their defaults are the reference's.
 """Mixture-of-Experts layer: top-k routing, capacity-bounded sorted dispatch.
 
 Dispatch is *per batch row* (buffers [B, E, C, d]), as in the reference:
@@ -77,7 +80,8 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, Any]:
         specs["wg"] = ParamSpec((m.n_experts, d, fe),
                                 ("experts", "embed", "expert_mlp"), "scaled")
     if m.n_shared_experts:
-        specs["shared"] = L.mlp_specs(d, cfg.d_ff, glu=cfg.glu)
+        specs["shared"] = L.mlp_specs(d, m.d_shared or cfg.d_ff,
+                                      glu=cfg.glu)
     return specs
 
 
@@ -114,15 +118,18 @@ def route(router_params, x: torch.Tensor, m: MoEConfig,
 
 def _top_k(logits: torch.Tensor, m: MoEConfig,
            rng: Optional[torch.Generator]):
-    """(expert ids, renormalised gates, the softmax over every expert, the
-    first choice one-hot, the logits with the jitter) of plain logits."""
+    """(expert ids, their gates (renormalised to sum 1 unless
+    ``m.norm_topk`` is off), the softmax over every expert, the first choice
+    one-hot, the logits with the jitter) of plain logits."""
     if rng is not None and m.router_jitter > 0:
         noise = torch.randn(logits.shape, generator=rng, dtype=torch.float32,
                             device=rng.device).to(logits.device)
         logits = logits + m.router_jitter * noise
     gates_full = torch.softmax(logits, dim=-1)
     top_g, top_e = torch.topk(gates_full, m.top_k, dim=-1, sorted=True)
-    top_g = top_g / torch.clamp(torch.sum(top_g, -1, keepdim=True), min=1e-9)
+    if m.norm_topk:
+        top_g = top_g / torch.clamp(torch.sum(top_g, -1, keepdim=True),
+                                    min=1e-9)
     first = torch.nn.functional.one_hot(top_e[..., 0], m.n_experts).float()
     return top_e, top_g, gates_full, first, logits
 

@@ -5,7 +5,10 @@
 # trace see; the attention block's phases have labels of their own.  The
 # `shard(...)` constraints are identities unless a plan is active and the
 # tensor is a DTensor (distributed/sharding.py).  The router's `rng` is a
-# `torch.Generator` (see models/moe.py).
+# `torch.Generator` (see models/moe.py).  The port's own: latent attention
+# (`models/mla.py`, where ``cfg.mla`` is set) in the attention block, and an
+# MoE stack that leads with ``n_dense_layers`` dense layers, stacked apart
+# under ``dense_layers``.
 """Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families.
 
 Parameters keep the reference's layout: the layers' leaves are stacked on a
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ArchConfig, dtype_of
 from repro_torch.distributed.sharding import active_rules, shard, use_rules
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import HeadLayout
@@ -82,17 +86,20 @@ class ModelDims:
 # ---------------------------------------------------------------------------
 
 
-def layer_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
+def layer_specs(cfg: ArchConfig, dims: ModelDims, *,
+                dense: bool = False) -> Dict[str, Any]:
+    """One layer's specs; ``dense``: a leading dense layer of an MoE stack."""
     require_ported(cfg)
     d = cfg.d_model
     if cfg.family in ("ssm", "hybrid"):
         return {"ssm_norm": L.rmsnorm_specs(d), "ssm": S.mamba2_specs(cfg)}
     specs: Dict[str, Any] = {
         "attn_norm": L.rmsnorm_specs(d),
-        "attn": A.attention_specs(cfg.attn, d, dims.layout),
+        "attn": (MLA.mla_specs(cfg) if cfg.mla is not None
+                 else A.attention_specs(cfg.attn, d, dims.layout)),
         "mlp_norm": L.rmsnorm_specs(d),
     }
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not dense:
         specs["moe"] = M.moe_specs(cfg)
     else:
         specs["mlp"] = L.mlp_specs(d, cfg.d_ff, glu=cfg.glu)
@@ -116,8 +123,15 @@ def lm_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
         "final_norm": L.rmsnorm_specs(cfg.d_model),
     }
     per_layer = layer_specs(cfg, dims)
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    if cfg.n_dense_layers:
+        if not cfg.scan_layers:
+            raise NotImplementedError("leading dense layers are stacked "
+                                      "(scan_layers=True)")
+        specs["dense_layers"] = L.stack_specs(
+            layer_specs(cfg, dims, dense=True), cfg.n_dense_layers)
     if cfg.scan_layers:
-        specs["layers"] = L.stack_specs(per_layer, cfg.n_layers)
+        specs["layers"] = L.stack_specs(per_layer, n_moe)
     else:
         specs["layers"] = {f"layer_{i}": per_layer for i in range(cfg.n_layers)}
     if cfg.family == "hybrid":
@@ -132,9 +146,13 @@ def lm_specs(cfg: ArchConfig, dims: ModelDims) -> Dict[str, Any]:
 
 
 def layer_params(params, cfg: ArchConfig, i: int):
-    """Parameters of layer ``i``: a slice of the stacked leaves (views)."""
+    """Parameters of layer ``i``: a slice of the stacked leaves (views); the
+    leading dense layers come first."""
+    nd = cfg.n_dense_layers
+    if i < nd:
+        return L.tree_index(params["dense_layers"], i)
     if cfg.scan_layers:
-        return L.tree_index(params["layers"], i)
+        return L.tree_index(params["layers"], i - nd)
     return params["layers"][f"layer_{i}"]
 
 
@@ -145,7 +163,9 @@ def split_layers(params, cfg: ArchConfig) -> List[Dict[str, Any]]:
     a zero gradient the size of the whole stacked leaf."""
     if not cfg.scan_layers:
         return [params["layers"][f"layer_{i}"] for i in range(cfg.n_layers)]
-    return unstack(params["layers"], cfg.n_layers)
+    nd = cfg.n_dense_layers
+    dense = unstack(params["dense_layers"], nd) if nd else []
+    return dense + unstack(params["layers"], cfg.n_layers - nd)
 
 
 def unstack(stacked, n: int) -> List[Dict[str, Any]]:
@@ -269,15 +289,29 @@ def _maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
 
 def rope_tables(cfg: ArchConfig, positions):
     """The rotary tables of a step's positions, shared by all its layers."""
+    if cfg.mla is not None:
+        return MLA.rope_tables(cfg, positions)
     return L.rope_tables(positions, cfg.attn.head_dim, cfg.attn.rope_theta)
 
 
 def _attn_out(p, cfg: ArchConfig, dims: ModelDims, x, positions, window,
               *, plus_one: bool, rope=None):
-    """norm -> qkv -> attention -> output projection; returns (y, (k, v)).
-    Each phase is labelled (``nugget_block_attn.qkv``, ``.attend``,
-    ``.out``)."""
+    """norm -> qkv -> attention -> output projection; returns (y, (k, v)),
+    with latent attention (y, (latent, None)).  Each phase is labelled
+    (``nugget_block_attn.qkv``, ``.attend``, ``.out``)."""
     dt = x.dtype
+    if cfg.mla is not None:
+        if rope is None:
+            rope = rope_tables(cfg, positions)
+        with L.scope("nugget_block_attn.qkv"):
+            h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
+            q_nope, q_pe, latent = MLA.project(p["attn"], cfg, h, rope, dt)
+        with L.scope("nugget_block_attn.attend"):
+            ctx = MLA.attend_expanded(p["attn"], cfg, q_nope, q_pe, latent,
+                                      dt)
+        with L.scope("nugget_block_attn.out"):
+            y = MLA.out_proj(p["attn"], ctx, dt)
+        return y, (latent, None)
     with L.scope("nugget_block_attn.qkv"):
         h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps, plus_one=plus_one)
         q, k, v = A.qkv(p["attn"], cfg.attn, dims.layout, h, positions, dt,

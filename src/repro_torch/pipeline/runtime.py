@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 from repro_torch import obs
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, config_dict
 from repro_torch.device import resolve_device
 from repro_torch.faults import FaultInjector, RetryPolicy
 from repro_torch.pipeline.journal import RunJournal
@@ -131,7 +131,7 @@ class PipelineConfig:
 
     def platform_spec(self, platform: str) -> Dict:
         """Everything a platform run depends on (part of stage specs)."""
-        return {"arch": dataclasses.asdict(self.arch_for(platform)),
+        return {"arch": config_dict(self.arch_for(platform)),
                 "platform": platform, "seq_len": self.seq_len,
                 "batch": self.batch, "seed": self.seed,
                 "backend": "torch", "device": self.device}

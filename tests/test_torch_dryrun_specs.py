@@ -16,10 +16,10 @@ import pytest
 
 from repro_torch.configs import SHAPES as PT_SHAPES
 from repro_torch.configs import get_config as pt_get_config
-from repro_torch.configs import list_archs, shapes_for as pt_shapes_for
+from repro_torch.configs import reference_archs, shapes_for as pt_shapes_for
 from repro_torch.launch import dryrun as PD
 
-ARCHS = list_archs()
+ARCHS = reference_archs()
 CELLS = list(PD.all_cells())
 FIELDS = ("tp", "dp", "eff_devices", "fsdp", "param_count",
           "active_param_count", "tokens", "microbatch",
@@ -193,3 +193,14 @@ def test_plan_and_bytes_per_device_equal_the_references(arch, shape, mesh):
         assert 1 <= res["microbatch_traced"] <= res["microbatch"]
         assert (PT_SHAPES[shape].global_batch // res["dp"]) % \
             res["microbatch_traced"] == 0
+
+
+def test_the_ports_own_architectures_have_no_cell():
+    """The dry-run prices the JAX package's architectures; one of the port
+    alone is named as skipped, with the reason, and has no cell."""
+    from repro_torch.configs import PORT_ONLY, list_archs
+    assert set(list_archs()) == set(ARCHS) | set(PORT_ONLY)
+    assert {a for a, _, _ in CELLS} == set(ARCHS)
+    for arch in PORT_ONLY:
+        with pytest.raises(NotImplementedError, match="port's alone"):
+            PD.configure(arch)

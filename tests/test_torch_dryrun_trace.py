@@ -334,7 +334,7 @@ def test_full_width_decode_cell_end_to_end(tmp_path):
     assert cell["attention_impl"] == cell["ssm_impl"] == "chunked"
     assert cell["kernel_launches"] == {"flash_attention": 0,
                                        "flash_decode": 0, "ssd_intra": 0,
-                                       "grouped_mlp": 0}
+                                       "grouped_mlp": 0, "mla_decode": 0}
     assert 0 < cell["flops"] < cell["trace_flops_global"]
     assert cell["collectives"]["all-reduce"]["count"] > 0
     assert set(cell["collectives"]) == {"all-reduce", "all-gather",

@@ -26,7 +26,9 @@ from repro_torch.models.model_zoo import build_model
 
 LABELS = {"qwen3-1.7b": ("nugget_block_attn", "nugget_block_mlp"),
           "olmoe-1b-7b": ("nugget_block_attn", "nugget_block_moe"),
-          "mamba2-780m": ("nugget_block_mamba",)}
+          "mamba2-780m": ("nugget_block_mamba",),
+          "deepseek-v2-lite": ("nugget_block_attn", "nugget_block_mlp",
+                               "nugget_block_moe")}
 ALL = sorted({label for v in LABELS.values() for label in v})
 
 
@@ -79,6 +81,9 @@ def test_labelled_ops_are_the_blocks_ops(recorded):
         assert "bmm" in per["nugget_block_moe"]            # the experts
     if arch == "mamba2-780m":
         assert "cumsum" in per["nugget_block_mamba"]
+    if arch == "deepseek-v2-lite":   # the leading dense layer, then experts
+        assert "matmul" in per["nugget_block_mlp"]
+        assert "bmm" in per["nugget_block_moe"]
 
 
 def _profiler_nodes(graph) -> list:

@@ -19,6 +19,7 @@ import pytest
 from repro.pipeline import PipelineConfig as JxPipelineConfig
 from repro.pipeline import PipelineContext as JxPipelineContext
 from repro.pipeline import ProfileStage as JxProfileStage
+from repro_torch.configs.base import config_dict
 from repro_torch.core.profile_store import load_profile
 from repro_torch.pipeline import (ArtifactStore, Pipeline, PipelineConfig,
                                   PipelineContext, ProfileStage,
@@ -197,7 +198,7 @@ def test_pipeline_trains_the_jax_pipelines_config(arch, reduce, platform):
     platform spec adds only the backend and the device."""
     jcfg = JxPipelineConfig(arch=arch, reduce=reduce, seq_len=32)
     pcfg = PipelineConfig(arch=arch, reduce=reduce, seq_len=32, device="cpu")
-    assert dataclasses.asdict(pcfg.arch_for(platform)) == \
+    assert config_dict(pcfg.arch_for(platform)) == \
         dataclasses.asdict(jcfg.arch_for(platform))
     jspec, pspec = jcfg.platform_spec(platform), pcfg.platform_spec(platform)
     assert {k: v for k, v in pspec.items()
@@ -214,7 +215,7 @@ def test_platform_tokens_parse_as_the_jax_ones():
         p = platform_config(dataclasses.replace(pget("qwen3-1.7b"),
                                                 attention_impl="chunked",
                                                 ssm_impl="chunked"), token)
-        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+        assert dataclasses.asdict(j) == config_dict(p)
     with pytest.raises(ValueError, match="unknown platform token"):
         platform_config(pget("qwen3-1.7b"), "tf32")
 

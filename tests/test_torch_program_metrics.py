@@ -12,7 +12,8 @@ from repro_torch import obs
 BENCH = Path(__file__).resolve().parents[1] / "portbench"
 
 DISPATCH = {"engine.decode_dispatch_ms.serve": "engine.decode.forward",
-            "engine.prefill_dispatch_ms.serve": "engine.prefill.forward"}
+            "engine.prefill_dispatch_ms.serve": "engine.prefill.forward",
+            "attn.mla_decode_issue_ms.serve": "attn.mla.decode"}
 SLOT_FILL = "model_step.moe_slot_fill.serve"
 
 
