@@ -30,10 +30,14 @@ expert) and mistral-large-123b with 4 of its 88 layers (a GQA group of 12:
 K2's two head blocks) and deepseek-v2-lite whole (27 layers of latent
 attention, the first a dense MLP, the rest 64 routed and 2 shared experts);
 each cut is named in the path's ``reduced``. For each
-path it checks by the launch counters that every prefill went through the
+path it checks, by the kernels' device events under torch.profiler and by
+the wrappers' launch counters, that every prefill went through the
 kernels of its layers (K1 per attention layer, K3 per Mamba2 layer) and every
 decode step through K2 per attention layer, or the latent decode per latent
-attention layer (and the grouped MoE kernel per MoE layer), holds the kernel
+attention layer (and the grouped MoE kernel per MoE layer), that every
+decode step but the first two (the warm-up and the capture) replayed the
+step's CUDA graph and that the greedy tokens are those of the same path
+decoding eagerly, holds the kernel
 path against the
 plain path on the card (in bf16 and in f32 activations; for MoE with the
 share of routing decisions that differ, the plain path's experts on their
@@ -945,13 +949,13 @@ def full_width_grouped_mlp(gen, cfg, t: int) -> dict:
 
 def grouped_decode_syncs(cfg, rows: int, steps: int = 3) -> dict:
     """Engine decode steps at ``rows`` rows (the chat cell's 256) on `cfg`
-    at full depth, profile hooks on: each makes exactly one synchronising
-    call (its read of the tokens, `set_sync_debug_mode`) and one grouped
-    product a MoE layer.  Every row decodes, active or not, so two requests
-    suffice."""
+    at full depth, profile hooks on, each a replay of the step's graph:
+    each makes exactly one synchronising call (its read of the tokens,
+    `set_sync_debug_mode`) and counts one grouped product a MoE layer, and
+    one more runs its up and down kernels on the card (`on_device`).
+    Every row decodes, active or not, so two requests suffice."""
     import warnings
     import numpy as np
-    from repro_torch.kernels.moe_grouped import grouped_mlp
     from repro_torch.serve.engine import Request, ServeEngine
     params = serve_params(cfg, None)
     eng = ServeEngine(cfg, batch=rows, max_seq=64, prefill_len=16,
@@ -963,10 +967,11 @@ def grouped_decode_syncs(cfg, rows: int, steps: int = 3) -> dict:
     while eng.queue:
         eng.step(params)
     eng.step(params)                     # a first decode step: warm
+    eng.step(params)                     # the capture of its graph
     torch.cuda.synchronize()
     syncs, launches, step_ms = [], [], []
     for _ in range(steps):
-        before = grouped_mlp.launches
+        before = read_counters()["grouped_mlp"]
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -979,14 +984,21 @@ def grouped_decode_syncs(cfg, rows: int, steps: int = 3) -> dict:
         syncs.append([str(w.message).splitlines()[0][:100] for w in caught
                       if str(w.message).startswith(
                           "called a synchronizing CUDA operation")])
-        launches.append(grouped_mlp.launches - before)
+        launches.append(read_counters()["grouped_mlp"] - before)
     assert eng.kinds_log[-steps:] == ["decode"] * steps, eng.kinds_log
     assert all(len(s) == 1 for s in syncs), syncs
     assert launches == [grouped_layers(cfg)] * steps, launches
+    # the grouped kernels that one more replayed step ran on the card
+    want = expected_events({"grouped_mlp": grouped_layers(cfg)})
+    _, events, _ = on_device(lambda: eng.step(params), want)
+    assert eng.kinds_log[-1] == "decode", eng.kinds_log
+    assert events["grouped_mlp"] == want["grouped_mlp"], events
     del eng, params
     return {"arch": cfg.name, "rows": rows, "steps": steps,
             "syncs_per_step": [len(s) for s in syncs], "sync": syncs[0][0],
-            "grouped_launches_per_step": launches, "step_ms": step_ms}
+            "grouped_launches_per_step": launches,
+            "grouped_events_of_a_step": events["grouped_mlp"],
+            "step_ms": step_ms}
 
 
 # The benchmark cell deepseek-v2-lite.longdoc's shapes
@@ -1377,24 +1389,89 @@ def plans_ssd(gen, cfg, prefill_len: int) -> dict:
             "ms_by_plan": ms}
 
 
-def _wrappers() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.mla_decode import mla_decode
-    from repro_torch.kernels.moe_grouped import grouped_mlp
-    from repro_torch.kernels.ssd import ssd_intra
-    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "ssd_intra": ssd_intra, "grouped_mlp": grouped_mlp,
-            "mla_decode": mla_decode}
+_LAUNCHES0: dict = {}         # the wrappers' counts at `reset_counters`
 
 
 def reset_counters() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Take the kernel wrappers' launch counts, as the registry holds them,
+    for 0 (`read_counters`)."""
+    from repro_torch.kernels import build
+    _LAUNCHES0.update(build.launches())
 
 
 def read_counters() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each kernel wrapper's launches since `reset_counters`, as the host
+    counted them (a replayed CUDA graph counts again what its capture
+    counted)."""
+    from repro_torch.kernels import build
+    return {k: n - _LAUNCHES0.get(k, 0) for k, n in build.launches().items()}
+
+
+# device events of one launch, where a wrapper's launch makes more than one
+# (the grouped product: its up and its down kernel)
+EVENTS_PER_LAUNCH = {"grouped_mlp": 2}
+
+
+def on_device(fn, expected: dict):
+    """``fn()`` under ``torch.profiler``, and the port's kernels' device
+    events in it by name (`hlo_analysis.PORT_KERNEL_NAMES`), as (``fn``'s
+    result, the events of each kernel, the profiles taken).  Each kernel of
+    a replayed CUDA graph is an event of its own, so the count rests on what
+    the card ran, not on what the host counted.  The profile starts with
+    `hlo_analysis.LEAD_IN_LAUNCHES` fills, as `hlo_analysis.profile_call`'s
+    do; a profile may still lose an event (never add one), so ``fn`` runs
+    again, up to `hlo_analysis.PROFILE_ATTEMPTS` times, while a kernel
+    reads fewer events than ``expected`` (the events of each kernel) and
+    none reads more.  ``fn`` must bear being run again."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import hlo_analysis as H
+    kernel_of = {n: k for k, names in H.PORT_KERNEL_NAMES.items()
+                 for n in names}
+    for attempt in range(1, H.PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead = torch.zeros(1, device="cuda")
+            for _ in range(H.LEAD_IN_LAUNCHES):
+                lead.fill_(0.0)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        events = dict.fromkeys(H.PORT_KERNEL_NAMES, 0)
+        for e in prof.profiler.kineto_results.events():
+            kernel = kernel_of.get(H.kernel_name(e.name()))
+            if kernel is not None and e.device_type().name != "CPU":
+                events[kernel] += 1
+        short = any(events[k] < n for k, n in expected.items())
+        over = any(events[k] > n for k, n in expected.items())
+        if over or not short:
+            break
+    return out, events, attempt
+
+
+def expected_events(launches: dict) -> dict:
+    """The device events that ``launches`` make (`EVENTS_PER_LAUNCH`)."""
+    return {k: n * EVENTS_PER_LAUNCH.get(k, 1) for k, n in launches.items()}
+
+
+def graph_counts() -> dict:
+    """The engine's captures and replays of its decode step's graph."""
+    from repro_torch import obs
+    reg = obs.metrics()
+    return {k: reg.value(f"serve.decode_graph_{k}") or 0
+            for k in ("captures", "replays")}
+
+
+@contextlib.contextmanager
+def eager_decode():
+    """Engines made and run inside decode eagerly: the engine's rule
+    (`serve.engine.graph_captures`) answers false, as on the CPU."""
+    from repro_torch.serve import engine as E
+    rule = E.graph_captures
+    E.graph_captures = lambda *args: False
+    try:
+        yield
+    finally:
+        E.graph_captures = rule
 
 
 def n_attention_layers(cfg) -> int:
@@ -1545,10 +1622,10 @@ TOKENS_PER_S = {}
 
 def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
                 given=None):
-    """Serve 16 requests on the path; returns (engine, launches, params,
-    the kernel path's and the f32 plain path's logits on the checks'
-    batch).  ``given``: for a quantized path, its parameters and its base
-    path's logits."""
+    """Serve 16 requests on the path; returns (engine, launches (as the
+    card's kernel events count them), params, the kernel path's and the f32
+    plain path's logits on the checks' batch).  ``given``: for a quantized
+    path, its parameters and its base path's logits."""
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve import ServeEngine, SyntheticRequests
 
@@ -1582,8 +1659,10 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
                       prefill_len=prefill_len)
     # ---- the main path: counters to 0 just before, read just after ---------
     reset_counters()
+    graphs0 = graph_counts()
     stats = eng.run(params, requests())
-    launches = read_counters()
+    counted = read_counters()
+    graphs = {k: v - graphs0[k] for k, v in graph_counts().items()}
     peak = torch.cuda.max_memory_allocated()
 
     prefills = eng.kinds_log.count("prefill")
@@ -1594,10 +1673,38 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
         (cfg.layer_windows(), prefill_len)
     assert stats["requests"] == n_requests, stats
     assert prefills == n_requests, (prefills, n_requests)
-    assert launches == expected_launches(cfg, prefills, decodes), launches
+    expected = expected_launches(cfg, prefills, decodes)
+    # what the host counted: a replay counts again what its capture did
+    assert counted == expected, counted
     outputs = {r.req_id: r.output for r in eng.done}
     for out in outputs.values():
         assert len(out) >= 2 and all(0 <= t < cfg.vocab_size for t in out)
+    # every decode step replays the step's graph but the warm-up and the
+    # capture, and gives the tokens of the same path decoding eagerly
+    assert graphs == {"captures": 1, "replays": decodes - 2}, graphs
+
+    # what the card ran: the same requests on a fresh engine under
+    # torch.profiler, its kernels counted by their device events
+    def served():
+        e = ServeEngine(cfg, batch=batch, max_seq=max_seq,
+                        prefill_len=prefill_len, instrument=False)
+        e.run(params, requests())
+        return e
+    want_events = expected_events(expected)
+    profiled, events, profiles = on_device(served, want_events)
+    assert profiled.kinds_log == eng.kinds_log
+    assert events == want_events, (events, want_events)
+    assert {r.req_id: r.output for r in profiled.done} == outputs
+    del profiled
+    launches = {k: n // EVENTS_PER_LAUNCH.get(k, 1)
+                for k, n in events.items()}
+    with eager_decode():
+        eager = ServeEngine(cfg, batch=batch, max_seq=max_seq,
+                            prefill_len=prefill_len, instrument=False)
+        eager.run(params, requests())
+    eager_outputs = {r.req_id: r.output for r in eager.done}
+    del eager
+    assert eager_outputs == outputs
     from repro_torch.configs import get_config
     full = get_config(cfg.name)
     reduced = ({"n_layers": [full.n_layers, cfg.n_layers]}
@@ -1616,6 +1723,8 @@ def phase_serve(path, cfg, batch, max_seq, prefill_len, n_requests,
          batch=batch, max_seq=max_seq,
          prefill_len=prefill_len, stats=stats, prefills=prefills,
          decode_iterations=decodes, launches=launches,
+         launches_counted=counted, profiles_taken=profiles,
+         decode_graph=dict(graphs, tokens_as_eager=True),
          peak_memory_bytes=peak, weight_bytes=weight_bytes,
          tokens_per_s_of=dict(TOKENS_PER_S) if weight_bytes else None)
     TOKENS_PER_S[path] = stats["tokens_per_s"]

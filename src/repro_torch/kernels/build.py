@@ -7,6 +7,9 @@ a plain C interface, loaded with ``ctypes``.  The library is built at first
 use into ``_build/`` beside this file (ignored by git), in a directory keyed
 by a hash of the sources, from the sources in the repository and nothing
 else.  If ``nvcc`` fails, the build raises with the compiler's output.
+
+Each wrapper counts the launches it makes into the registry of
+``repro_torch.obs`` (`count_launch`, read by `launches`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -43,6 +48,10 @@ SIGNATURES = {
     "rt_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
                       _P],
 }
+
+# the wrappers that count their launches (`count_launch`), by their names
+KERNELS = ("flash_attention", "flash_decode", "ssd_intra", "grouped_mlp",
+           "mla_decode")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -148,3 +157,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: the kernel does not take these sizes "
                            f"or this dtype (code {err})")
     raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch by the wrapper ``kernel`` (a grouped product's: its
+    up and down pair) into the registry's ``kernels.<kernel>.launches``.
+    The count is of what the host issued: a replayed CUDA graph counts
+    again what its capture counted (`obs.CountRecord`)."""
+    obs.metrics().count(f"kernels.{kernel}.launches")
+
+
+def launches() -> Dict[str, int]:
+    """Each wrapper's launches counted so far in this process."""
+    reg = obs.metrics()
+    return {k: int(reg.value(f"kernels.{k}.launches") or 0) for k in KERNELS}

@@ -56,6 +56,7 @@ def head_blocks(group: int):
 
 
 _counters: dict = {}      # device -> int32 split counters, all 0 between launches
+_outgrown: list = []      # counters that a larger set replaced, never freed
 
 
 def split_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -63,9 +64,13 @@ def split_counters(device: torch.device, n: int) -> torch.Tensor:
     the kernel's last split of each (row, head block) resets its counter, so
     they are 0 again after every launch.  Grown (never shrunk) on demand.
     Launches on one stream, as the port makes them, never share them at
-    once."""
+    once.  A CUDA graph keeps the address its capture saw, so a set that a
+    larger one replaces is kept alive (and stays 0) for the graphs that
+    hold it."""
     t = _counters.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _outgrown.append(t)
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[device] = t
     return t
@@ -180,8 +185,5 @@ def launch_with_split(q: torch.Tensor, k_cache: torch.Tensor,
             chunk, window, float(cap), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_decode")
-    flash_decode.launches += 1
+    build.count_launch("flash_decode")
     return out
-
-
-flash_decode.launches = 0         # kernel launches made by the wrapper

@@ -120,8 +120,5 @@ def launch_with_split(q: torch.Tensor, cache: torch.Tensor,
             n_splits, chunk, counters, float(scale),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "mla_decode")
-    mla_decode.launches += 1
+    build.count_launch("mla_decode")
     return out
-
-
-mla_decode.launches = 0           # kernel launches made by the wrapper

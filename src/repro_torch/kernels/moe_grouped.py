@@ -128,8 +128,5 @@ def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
             ends.data_ptr(), e, d, fe, top_k,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "grouped_mlp")
-    grouped_mlp.launches += 1
+    build.count_launch("grouped_mlp")
     return out
-
-
-grouped_mlp.launches = 0     # calls that launched the kernel pair (up, down)

@@ -318,8 +318,5 @@ def launch_with_plan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             err = lib.rt_ssd_intra(*ptrs, b, s, nh, hp, n, q,
                                    DTYPE_CODES[xh.dtype], stream)
     build.check(err, "ssd_intra")
-    ssd_intra.launches += 1
+    build.count_launch("ssd_intra")
     return y, s_chunk, decay, cum
-
-
-ssd_intra.launches = 0            # kernel launches made by the wrapper

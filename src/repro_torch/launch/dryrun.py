@@ -526,16 +526,8 @@ def kernel_launches() -> Dict[str, int]:
     """The K1 / K2 / K3, grouped MoE and latent-decode wrappers' launch
     counts in this process (a dry-run cell runs on fake tensors and launches
     none)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.mla_decode import mla_decode
-    from repro_torch.kernels.moe_grouped import grouped_mlp
-    from repro_torch.kernels.ssd import ssd_intra
-    return {"flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches,
-            "ssd_intra": ssd_intra.launches,
-            "grouped_mlp": grouped_mlp.launches,
-            "mla_decode": mla_decode.launches}
+    from repro_torch.kernels import build
+    return build.launches()
 
 
 # ---------------------------------------------------------------------------

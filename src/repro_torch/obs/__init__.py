@@ -2,7 +2,8 @@
 # Where the port departs: `span` also answers a recording torch.profiler (a
 # `record_function` range of the span's name, with the tracer off too; see
 # `obs.trace`, whose spans are stamped on the profiler's Unix clock), and
-# `timed` is the port's own (a span whose duration the registry keeps).
+# `timed` is the port's own (a span whose duration the registry keeps), as
+# are `capturing` and `CountRecord`, for a step captured into a CUDA graph.
 """``repro_torch.obs`` — unified tracing + metrics across the nugget lifecycle.
 
 Zero-dependency observability with three pieces (see
@@ -29,7 +30,10 @@ no-op span (budgeted <2%% of a training step by
 then it opens a ``record_function`` range of the same name, so that the
 profile shows the span (the model's block labels, ``models/layers.scope``,
 are such spans).  ``obs.timed()`` is a span whose duration also goes into
-the registry's histogram of its name, tracing on or off.  Enable tracing per
+the registry's histogram of its name, tracing on or off, except while a
+CUDA graph captures (`capturing`): a capture runs no step.  `CountRecord`
+keeps what a captured step counted, to count it again at each replay.
+Enable tracing per
 process with ``obs.configure(trace=True, trace_dir=...)`` or the
 ``REPRO_TRACE`` env var (``1`` to buffer in memory, a path to also stream
 JSONL there).
@@ -38,7 +42,9 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Optional
+from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch.obs import log  # noqa: F401  (re-exported module)
 from repro_torch.obs.metrics import (  # noqa: F401
@@ -89,14 +95,53 @@ class _Timed:
     def __exit__(self, exc_type, exc, tb) -> None:
         dt = time.perf_counter() - self._t0
         self._span.__exit__(exc_type, exc, tb)
-        _metrics.observe(self.name, dt)
+        if not capturing():
+            _metrics.observe(self.name, dt)
 
 
 def timed(name: str, **attrs: Any) -> _Timed:
     """A span (as `span`) whose duration in seconds is also observed into
     the registry's histogram ``name``, whether or not the tracer is on: one
-    clock pair and one observation a call."""
+    clock pair and one observation a call.  A span that ends while a CUDA
+    graph captures observes nothing: the capture is not a step."""
     return _Timed(name, attrs)
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (its kernels
+    are recorded, and none runs)."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _counter_values() -> Dict[str, float]:
+    return {name: s["value"] for name, s in _metrics.snapshot().items()
+            if s["type"] == "counter"}
+
+
+class CountRecord:
+    """What a step counted into the registry's counters while a CUDA graph
+    captured it (its MoE counts, the kernel wrappers' launches), counted
+    again at each `replay`: a replay runs the step's kernels and none of
+    its Python.  The block it opens is the capture; the counts made in it
+    stand once, for the capture's step."""
+
+    def __init__(self):
+        self.counts: Dict[str, float] = {}
+
+    def __enter__(self) -> "CountRecord":
+        self._before = _counter_values()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        before = self._before
+        self.counts = {name: v - before.get(name, 0)
+                       for name, v in _counter_values().items()
+                       if v != before.get(name, 0)}
+
+    def replay(self) -> None:
+        for name, amount in self.counts.items():
+            _metrics.count(name, amount)
 
 
 def event(name: str, **attrs: Any) -> None:

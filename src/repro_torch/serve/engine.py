@@ -6,7 +6,8 @@
 # their `.forward`, `.read`, `.rows`; `profile.add_step`), and the forward
 # phases' durations go into the registry's histograms of the same names;
 # `run` writes nothing into the registry (the reference's `serve.*` values
-# had no reader).
+# had no reader).  On the card a greedy decode step is captured once into a
+# CUDA graph and replayed (`graph_captures`); the reference has no such step.
 """Serving engine: continuous batching over a fixed-shape decode batch.
 
 Requests prefill into a single-row cache (fixed prefill length, padded) and
@@ -21,10 +22,24 @@ Device state (the cache, the last tokens) is updated in place; the host reads
 the device once per decode step (the new tokens) and keeps a mirror of the
 rows' lengths, so the loop has no other synchronisation.
 
+The decode step has fixed shapes and only in-place device state, so on the
+card it is issued from the host once: the first greedy step after a new cache
+or new parameters runs eagerly (the warm-up), the next one is captured into a
+``torch.cuda.CUDAGraph`` over the cache, ``last_token`` and the parameters,
+and every later one replays that graph (`graph_captures` says where: a CUDA
+device, greedy sampling, plain tensors).  The graph replays the very function
+the eager step calls.  ``reset()`` makes a new cache and so drops the
+graph; ``restore()`` writes the cache and ``last_token`` in place and keeps
+it.  What the captured step counted into the registry's counters (the MoE
+counts, the kernel wrappers' launches) is counted again at each replay
+(`obs.CountRecord`); ``serve.decode_graph_captures`` and
+``serve.decode_graph_replays`` count the captures and the replays.
+
 Each iteration is a span of the process's tracer (`repro_torch.obs`): a
 prefill ``engine.prefill`` (``req``, ``slot``), a decode step
 ``engine.decode`` (``rows``: the rows it decoded), each split into
-``.forward`` (all the iteration issues to the device before its read),
+``.forward`` (all the iteration issues to the device before its read: a
+decode step's graph replay where it has one),
 ``.read`` (the read, which waits for the device) and, for a decode step,
 ``.rows`` (the host's walk over the rows); ``profile.add_step`` is the
 profile's hook.  ``engine.prefill.forward`` and ``engine.decode.forward``
@@ -39,6 +54,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -48,6 +64,19 @@ from repro_torch.core.registry import BlockTable, merge_tables
 from repro_torch.device import DeviceLike
 from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.serve.sampler import greedy, sample
+
+
+def graph_captures(device: torch.device, temperature: float, params,
+                   cache) -> bool:
+    """Whether the engine captures its decode step into a CUDA graph: on a
+    CUDA device, greedy, outside any trace or fake-tensor mode, and with
+    every tensor of the parameters and the cache a plain one (not a DTensor,
+    not a fake tensor).  Elsewhere the step runs eagerly."""
+    if device.type != "cuda" or temperature > 0 or obs.tracing():
+        return False
+    leaves = tree_leaves(params) + tree_leaves(cache)
+    return all(type(t) in (torch.Tensor, torch.nn.Parameter)
+               for t in leaves if isinstance(t, torch.Tensor))
 
 
 @dataclasses.dataclass
@@ -136,6 +165,17 @@ class ServeEngine:
         self.done: List[Request] = []
         self.iterations = 0
         self.kinds_log: List[str] = []
+        self._drop_graph()      # a graph holds the old cache's addresses
+
+    def _drop_graph(self):
+        """Forget the decode step's graph: the next decode step decides
+        anew (`graph_captures`), warms up eagerly, and the one after it
+        captures."""
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_counts: Optional[obs.CountRecord] = None
+        self._graph_params = None       # the parameters it was decided for
+        self._graph_on = False
+        self._warmed = False
 
     def submit(self, req: Request):
         req.submitted_at = time.perf_counter()
@@ -177,20 +217,51 @@ class ServeEngine:
             self.iterations += 1
             obs.metrics().count("serve.prefill_iters")
 
+    def _decode_tokens(self, params):
+        """The decode step on the device: the model's step and the sampler,
+        the new tokens written into ``last_token`` in place.  The eager step
+        and the graph both run this."""
+        logits, _, _ = self.model.decode_step(params, self.last_token,
+                                              self.cache)
+        if self.temperature > 0:
+            tok = sample(logits, self.rng, temperature=self.temperature)
+        else:
+            tok = greedy(logits)
+        self.last_token.copy_(tok)
+
+    def _issue_decode(self):
+        """Issue one decode step: replay its graph, capture it, or run it
+        eagerly (the warm-up, and wherever `graph_captures` is false)."""
+        params = self.model_params
+        if params is not self._graph_params:     # new parameters: decide anew
+            self._drop_graph()
+            self._graph_params = params
+            self._graph_on = graph_captures(self.device, self.temperature,
+                                            params, self.cache)
+        if self._graph is not None:
+            self._graph.replay()
+            self._graph_counts.replay()
+            obs.metrics().count("serve.decode_graph_replays")
+        elif self._graph_on and self._warmed:
+            graph = torch.cuda.CUDAGraph()
+            with obs.CountRecord() as counts:
+                with torch.cuda.graph(graph):
+                    self._decode_tokens(params)
+            graph.replay()                       # the capture ran nothing
+            self._graph, self._graph_counts = graph, counts
+            obs.metrics().count("serve.decode_graph_captures")
+        else:
+            self._decode_tokens(params)
+            self._warmed = True
+
     def _decode_all(self):
         with obs.span("engine.decode") as sp:
             with obs.timed("engine.decode.forward"):
-                logits, self.cache, _ = self.model.decode_step(
-                    self.model_params, self.last_token, self.cache)
-                if self.temperature > 0:
-                    tok = sample(logits, self.rng,
-                                 temperature=self.temperature)
-                else:
-                    tok = greedy(logits)
-            self.last_token = tok
+                self._issue_decode()
             self.lengths += 1          # the step adds 1 to every row's length
             with obs.span("engine.decode.read"):
-                toks = tok[:, 0].cpu().numpy()  # the step's one device read
+                # the step's one device read
+                toks = self.last_token[:, 0].cpu().numpy()
             rows = 0
             with obs.span("engine.decode.rows"):
                 for b in range(self.batch):
@@ -271,11 +342,11 @@ class ServeEngine:
         }
 
     def restore(self, snap: Dict[str, Any]):
-        for k, v in snap["cache"].items():           # in place
+        # in place: a captured decode graph holds these buffers
+        for k, v in snap["cache"].items():
             self.cache[k].copy_(torch.from_numpy(np.asarray(v)))
         self.lengths = snap["cache"]["length"].astype(np.int64)
         self.active = snap["active"].copy()
         self.remaining = snap["remaining"].copy()
-        self.last_token = torch.from_numpy(
-            np.asarray(snap["last_token"])).to(self.device)
+        self.last_token.copy_(torch.from_numpy(np.asarray(snap["last_token"])))
         self.iterations = snap["iterations"]

@@ -93,8 +93,7 @@ def test_latent_attention_serves_through_both_kernels(cuda):
     kernel a layer."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels import build
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = dataclasses.replace(
         get_config("deepseek-v2-lite"), n_layers=3, vocab_size=1024,
@@ -103,9 +102,11 @@ def test_latent_attention_serves_through_both_kernels(cuda):
     eng = ServeEngine(cfg, batch=4, max_seq=96, prefill_len=64,
                       instrument=True, device="cuda")
     params = eng.model.init(torch.Generator(device="cuda").manual_seed(0))
-    k1, md = flash_attention.launches, mla_decode.launches
+    before = build.launches()
     out = eng.run(params, [Request(i, torch.randint(0, 1024, (64,)).numpy(), 5)
                            for i in range(4)])
     assert out["requests"] == 4
-    assert flash_attention.launches - k1 == 4 * 3
-    assert mla_decode.launches - md == 3 * (eng.kinds_log.count("decode"))
+    after = build.launches()
+    assert after["flash_attention"] - before["flash_attention"] == 4 * 3
+    assert after["mla_decode"] - before["mla_decode"] == \
+        3 * (eng.kinds_log.count("decode"))

@@ -28,6 +28,7 @@ from repro.models import moe as JM
 from repro_torch import obs
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.unit_of_work import trace_graph
+from repro_torch.kernels import build
 from repro_torch.kernels import moe_grouped as G
 from repro_torch.models import layers as L
 from repro_torch.models import moe as PM
@@ -303,7 +304,7 @@ def test_grouped_counters_are_the_shape_arithmetic(arch, k, b):
     names = ("moe.entries", "moe.slots", "moe.grouped_entries")
     reg = obs.metrics()
     before = {n: reg.value(n) or 0 for n in names}
-    launches = G.grouped_mlp.launches
+    launches = build.launches()
     PM._grouped_moe(params, cfg, x, top_e, top_g, aux)
     got = {n: (reg.value(n) or 0) - before[n] for n in names}
     n = b * k
@@ -311,7 +312,7 @@ def test_grouped_counters_are_the_shape_arithmetic(arch, k, b):
                    "moe.slots": G.grouped_rows(n, cfg.moe.n_experts),
                    "moe.grouped_entries": n}
     assert got["moe.slots"] > 0
-    assert G.grouped_mlp.launches == launches       # the CPU takes no kernel
+    assert build.launches() == launches       # the CPU takes no kernel
 
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():

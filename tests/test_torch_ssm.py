@@ -26,6 +26,7 @@ from repro.kernels.ssd import ssd_intra as j_ssd_intra
 from repro.models import ssm as JS
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels.ssd import chunking, ssd_intra, ssd_intra_plain
 from repro_torch.models import ssm as PS
@@ -106,12 +107,12 @@ def test_ssd_chunked_carries_an_initial_state():
 
 def test_ssd_intra_wrapper_takes_the_plain_version_on_cpu():
     _, px = _both(_ssd_inputs(1, 40, 2, 16, 8))
-    before = ssd_intra.launches
+    before = build.launches()
     got = ssd_intra(*px, 16)
     want = ssd_intra_plain(*px, 16)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert ssd_intra.launches == before     # counts launches on the card only
+    assert build.launches() == before     # counts launches on the card only
 
 
 @pytest.mark.parametrize("s,chunk,want", [(64, 16, (16, 4, 0)),
